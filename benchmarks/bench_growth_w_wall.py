@@ -1,5 +1,5 @@
-"""VERDICT r1 #8 demo: growth_w_wall-class step at the reference scale
-(100k cells, Gabriel solver + wall + protrusion links) on one TPU chip.
+"""growth_w_wall-class step at the reference scale (100k cells, Gabriel
+solver + wall + protrusion links) on one GPU; exits non-zero without one.
 Synthesizes the grown half-space tissue directly.
 Usage: python benchmarks/bench_growth_w_wall.py [n] [steps]
 """
@@ -10,8 +10,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples")
+import os  # noqa: E402
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+sys.path.insert(0, os.path.join(_REPO, "examples"))
+
+from yalla_tpu import backend  # noqa: E402
+
+backend.require_gpu()
+print(f"device: {backend.device_info()}; card: {backend.card_line()}")
 
 import growth_w_wall as G  # noqa: E402
 from yalla_tpu import Float3, Solution  # noqa: E402
@@ -28,10 +36,9 @@ rng = np.random.default_rng(0)
 # this tissue's density ~12 candidates sit within the cutoff, so NC = 32
 # is generous; the in-loop __err_gabriel_candidates flag certifies that
 # no point ever exceeded it (the reference silently overruns instead).
-# (i_block, window_cap) swept on TPU (benchmarks/diag_gabriel.py):
-# 128/384 is the fastest flag-clean pair -- the shared window needs the
-# block's sorted span (~i_block) plus ~3 tissue rows (~100 cells each at
-# this density); misfits (e.g. the wall node) ride the salvage pass
+# the shared window needs the block's sorted span (~i_block) plus ~3
+# tissue rows (~100 cells each at this density); misfits (e.g. the wall
+# node) ride the salvage pass
 cells = Solution(Float3, n_cells, cube_size=G.r_max,
                  engine=GabrielEngine(grid_size=64, row_cap=32,
                                       i_block=2048, max_candidates=24,

@@ -1,6 +1,6 @@
-"""Measured number for VERDICT r1 #2: intercalation_w_gradient-class
-step (150k cells, 1 protrusion/cell, per-step grid-sampled rewiring,
-link forces inside the lattice-resident loop) on one TPU chip.
+"""intercalation_w_gradient-class step (150k cells, 1 protrusion/cell,
+per-step grid-sampled rewiring, link forces inside the lattice-resident
+loop) on one GPU; exits non-zero without one.
 
 Synthesizes a 150k-cell two-layer tissue directly (the example grows into
 this regime over ~200 steps); measures rewire + Heun step throughput.
@@ -13,8 +13,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/examples")
+import os  # noqa: E402
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _REPO)
+sys.path.insert(0, os.path.join(_REPO, "examples"))
+
+from yalla_tpu import backend  # noqa: E402
+
+backend.require_gpu()
+print(f"device: {backend.device_info()}; card: {backend.card_line()}")
 
 import intercalation_w_gradient as IWG  # noqa: E402
 from yalla_tpu import Solution  # noqa: E402

@@ -11,19 +11,22 @@ tests/s.
 
 Usage: python benchmarks/bench_mesh_exclusion.py [n_points]
 """
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 700_000
     from yalla_tpu.mesh import Mesh
 
-    mesh = Mesh("examples/teapot.vtk")
+    mesh = Mesh(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "teapot.vtk"))
     lo = np.asarray(mesh.get_minimum())
     hi = np.asarray(mesh.get_maximum())
     n_facets = len(mesh.triangles)

@@ -1,6 +1,6 @@
 """Apical constriction: wedge-shaped cells bend a flat sheet into a cup.
 
-Rebuild of ``/root/reference/examples/apical_constriction.cu``: bending
+Rebuild of ``examples/apical_constriction.cu``: bending
 force with a preferred angle != 90 deg.
 """
 import os

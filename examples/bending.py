@@ -1,6 +1,6 @@
 """A bent epithelium (hexagonal sheet wrapped on a cylinder) relaxing flat.
 
-Rebuild of ``/root/reference/examples/bending.cu``.
+Rebuild of ``examples/bending.cu``.
 """
 import os
 import sys

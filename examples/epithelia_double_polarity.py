@@ -1,7 +1,7 @@
 """Epithelial cells with two polarity axes: apical-basal (theta, phi) and
 planar cell polarity (iota, chi).
 
-Rebuild of ``/root/reference/examples/epithelia_double_polarity.cu``:
+Rebuild of ``examples/epithelia_double_polarity.cu``:
 first half of the run bends against the AB axis, second half against the
 PCP axis -- the ``axis=`` keyword replaces the reference's member-pointer
 template parameters.

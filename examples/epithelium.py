@@ -1,6 +1,6 @@
 """Mesenchyme-to-epithelium transition: polarities relax radially outward.
 
-Rebuild of ``/root/reference/examples/epithelium.cu``: ReLU mechanics plus
+Rebuild of ``examples/epithelium.cu``: ReLU mechanics plus
 bending stiffness on a relaxed ball whose polarities start roughly radial.
 """
 import os

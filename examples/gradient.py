@@ -1,6 +1,6 @@
 """Morphogen gradient forming by cell-to-cell diffusion from one source.
 
-Rebuild of ``/root/reference/examples/gradient.cu``: the extra field w
+Rebuild of ``examples/gradient.cu``: the extra field w
 diffuses pairwise (dw = -D * r.w) from a clamped source cell.
 """
 import os

@@ -1,6 +1,6 @@
 """Growing mesenchyme constrained by a planar wall, with protrusions.
 
-Rebuild of ``/root/reference/examples/growth_w_wall.cu``: a "wall node"
+Rebuild of ``examples/growth_w_wall.cu``: a "wall node"
 (cell 0) tracks a plane normal to z; cells interact with it through a
 point-to-plane ReLU band (``link_wall_forces``), proliferate, and rewire
 grid-sampled protrusions; uses the Gabriel solver.
@@ -85,13 +85,8 @@ def child_fn(X, props, direction, i):
 
 def main(n_steps=n_time_steps):
     rng = np.random.default_rng(15)
-    # grid_size 64 keeps the x-row of lattice slots lane-aligned
-    # (64 * capacity 8 = 512 lanes), so on TPU the engine auto-selects
-    # the dense-lattice Pallas Gabriel kernel (~9.5x the windowed path
-    # at this model's 100k scale, BASELINE.md); other backends fall back
-    # to the windowed formulation unchanged.  Capacity 8 covers the
-    # RELAXED tissue's occupancy (spacing ~0.75); the in-loop flags
-    # certify it every step.
+    # the windowed Gabriel formulation; the in-loop flags certify its
+    # row and candidate capacities every step.
     cells = Solution(Float3, n_max, solver="gabriel", grid_size=64,
                      row_cap=64)
     cells.h_n = n_0
@@ -109,12 +104,9 @@ def main(n_steps=n_time_steps):
     # Initial relaxation against the wall (ref :172-174).  The UNRELAXED
     # seed ball (spacing 0.5, ref :150) is ~3.4x denser than the relaxed
     # tissue, so this transient runs on its own windowed-Gabriel engine
-    # sized for it (row_cap 128, lattice kernel opted out: per-cube
-    # occupancy would need capacity ~16 for ~100 steps, a 4x lane-work
-    # tax the whole growth run would then pay)
+    # sized for it (row_cap 128)
     relax = Solution(Float3, n_max, n_pad=cells.n_pad,
-                     engine=GabrielEngine(grid_size=64, row_cap=128,
-                                          lattice=False))
+                     engine=GabrielEngine(grid_size=64, row_cap=128))
     relax.h_X, relax.h_n = cells.h_X, n_0
     relax.copy_to_device()
     for _ in range(101):

@@ -1,6 +1,6 @@
 """Intercalating cells: protrusions along x drive convergent extension.
 
-Rebuild of ``/root/reference/examples/intercalation.cu``: link table with
+Rebuild of ``examples/intercalation.cu``: link table with
 random rewiring (keep links 1 < dist < 2 roughly aligned with x).
 """
 import os

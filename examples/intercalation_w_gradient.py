@@ -1,6 +1,6 @@
 """Mesenchymal intercalation orchestrated by epithelial signals.
 
-Rebuild of ``/root/reference/examples/intercalation_w_gradient.cu``: an
+Rebuild of ``examples/intercalation_w_gradient.cu``: an
 11,557-cell embryo IC restarts from ``examples/sphere_ic.vtk`` (VTK files
 double as checkpoints); two morphogens (w, f) diffuse from epithelial
 sources and steer grid-sampled protrusion rewiring; epithelium
@@ -128,8 +128,9 @@ def child_fn(X, props, direction, i):
 def main(n_steps=n_time_steps):
     inp = Vtk_input(os.path.join(HERE, "sphere_ic.vtk"))
     n_0 = inp.n_points
-    # auto: all-pairs below the crossover, Pallas lattice above -- the
-    # protrusion link forces run inside the lattice-resident loop
+    # auto: all-pairs below the crossover, a binned engine above (the
+    # sweep kernel on the GPU, the lattice elsewhere); the protrusion
+    # link forces run inside the step either way
     cells = Solution(Cell, n_max, solver="auto")
     cells.h_n = n_0
     inp.read_positions(cells)

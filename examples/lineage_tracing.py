@@ -1,7 +1,7 @@
 """Lineage tracing of a small group of dividing cells; writes the lineage
 tree as a second VTK (nodes + LINES branches).
 
-Rebuild of ``/root/reference/examples/lineage_tracing.cu`` on the
+Rebuild of ``examples/lineage_tracing.cu`` on the
 prefix-sum division framework (``yalla_tpu.growth``).
 """
 import os

@@ -1,6 +1,6 @@
 """Mono-polar migration: one polarized cell crawls through a cuboid tissue.
 
-Rebuild of ``/root/reference/examples/migration.cu``.
+Rebuild of ``examples/migration.cu``.
 """
 import os
 import sys

@@ -1,6 +1,6 @@
 """Tutorial model: framework features added one part at a time.
 
-Rebuild of ``/root/reference/examples/model_features_sequential_addition.cu``:
+Rebuild of ``examples/model_features_sequential_addition.cu``:
 1) relax a mesenchymal ball, 2) surround it with epithelium, 3) add a
 morphogen gradient, 4) add proliferation, 5) add gradient-oriented
 protrusion intercalation.

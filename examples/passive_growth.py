@@ -1,6 +1,6 @@
 """Growing mesenchyme enveloped by an epithelium.
 
-Rebuild of ``/root/reference/examples/passive_growth.cu``: type-dependent
+Rebuild of ``examples/passive_growth.cu``: type-dependent
 mechanics, neighbour-count side channels (aux reductions instead of device
 counters), mesenchyme-to-epithelium transition, and proliferation gated by
 type and neighbourhood.

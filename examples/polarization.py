@@ -1,6 +1,6 @@
 """Tissue polarization: nematic alignment of cell polarities.
 
-Rebuild of ``/root/reference/examples/polarization.cu``: clipped cubic
+Rebuild of ``examples/polarization.cu``: clipped cubic
 mechanics + bidirectional polarization force aligns random polarities.
 """
 import os

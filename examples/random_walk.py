@@ -1,7 +1,7 @@
 """A randomly migrating cell: cone-sampled polarity perturbations rotated
 into the migration frame (Rodrigues rotation).
 
-Rebuild of ``/root/reference/examples/random_walk.cu``.
+Rebuild of ``examples/random_walk.cu``.
 """
 import os
 import sys

@@ -1,6 +1,6 @@
 """Cell sorting by differential adhesion strength.
 
-Rebuild of ``/root/reference/examples/sorting.cu``: two cell types with a
+Rebuild of ``examples/sorting.cu``: two cell types with a
 clipped cubic potential whose strength depends on both types; the stickier
 population sorts to the core.
 """

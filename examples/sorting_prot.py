@@ -1,6 +1,6 @@
 """Cell sorting driven by type-dependent protrusion turnover rates.
 
-Rebuild of ``/root/reference/examples/sorting_prot.cu``.
+Rebuild of ``examples/sorting_prot.cu``.
 """
 import os
 import sys

@@ -1,6 +1,6 @@
 """Integrate an N-body problem with springs between all bodies.
 
-Rebuild of ``/root/reference/examples/springs.cu`` -- the minimal
+Rebuild of ``examples/springs.cu`` -- the minimal
 end-to-end slice: all-pairs engine, Heun integration, VTK time series.
 
 Run: python examples/springs.py  (writes output/springs_*.vtk)

@@ -1,6 +1,6 @@
 """Cut the Utah teapot out of a cuboid full of points (mesh exclusion).
 
-Rebuild of ``/root/reference/examples/teapot.cu``.
+Rebuild of ``examples/teapot.cu``.
 """
 import os
 import sys

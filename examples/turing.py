@@ -1,6 +1,6 @@
 """Meinhardt activator-inhibitor patterning within an epithelium.
 
-Rebuild of ``/root/reference/examples/turing.cu``: reaction on the
+Rebuild of ``examples/turing.cu``: reaction on the
 diagonal (i == j), pairwise diffusion, mechanics + bending keep the sheet
 flat while spots emerge in u.
 """

@@ -1,8 +1,8 @@
 """Meinhardt patterning with per-cell noise injected into the reaction.
 
-Rebuild of ``/root/reference/examples/turing_w_noise.cu``: same model as
+Rebuild of ``examples/turing_w_noise.cu``: same model as
 ``turing.py`` but each diagonal (reaction) evaluation perturbs u with
-counter-based per-cell noise -- the TPU-native replacement for the
+counter-based per-cell noise -- the JAX replacement for the
 reference's per-cell curandState inside the force functor.
 """
 import os

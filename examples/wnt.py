@@ -1,6 +1,6 @@
 """Polarities aligning along a morphogen (WNT) gradient.
 
-Rebuild of ``/root/reference/examples/wnt.cu``: w diffuses from a source;
+Rebuild of ``examples/wnt.cu``: w diffuses from a source;
 the polarization force is weighted by the w gradient so polarities end up
 pointing up the gradient.
 """

@@ -1,6 +1,6 @@
 """Write a masked subset of a Solution to VTK.
 
-Rebuild of ``/root/reference/examples/write_vtk_w_mask.cu``.
+Rebuild of ``examples/write_vtk_w_mask.cu``.
 """
 import os
 import sys

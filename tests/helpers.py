@@ -1,5 +1,5 @@
 """Shared test helpers, mirroring the reference's minunit fixture
-(``/root/reference/tests/minunit.cuh``)."""
+(``tests/minunit.cuh``)."""
 import numpy as np
 
 

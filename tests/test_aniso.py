@@ -1,11 +1,8 @@
 """Anisotropic lattice grids: ``grid_size=(gx, gy, gz)``.
 
-Only the x extent pays the Pallas kernels' 128-lane row rule
-(``gx * C % 128``); y and z are free at multiples of 8.  A cubic rule
-in all three axes costs ~25% spurious lane work for a ball-shaped
-tissue at e.g. C = 12 (gx forced 52 -> 64); these tests pin that the
-anisotropic paths (build, XLA resident, Pallas kernel, rebin, extras,
-Gabriel) are exactly equivalent to the cubic/oracle formulations.
+A ball- or rod-shaped tissue needs fewer cubes along its short axes;
+these tests pin that the anisotropic paths (build, XLA resident, rebin)
+are exactly equivalent to the cubic/oracle formulations.
 """
 import jax
 import jax.numpy as jnp
@@ -35,19 +32,18 @@ def test_lattice_aniso_matches_tile():
         tile.take_step(0.1, relu_force)
     ht = tile.copy_to_host()
 
-    for pallas in (False, True):
-        X, ov, aux = lattice_heun_steps(
-            5, 1, relu_force, friction_w_neighbour, "com", (16, 8, 8),
-            16, 2, X0, ov0, jnp.int32(n), jnp.float32(0.1),
-            jnp.float32(1.0), jnp.int32(0), None, pallas)
-        for k, v in aux.items():
-            if k.startswith("__err"):
-                assert float(np.max(np.asarray(v))) == 0, k
-        for f in ("x", "y", "z"):
-            got = np.asarray(getattr(X, f))[:n]
-            ref = getattr(ht, f)[:n]
-            assert np.allclose(got, ref, atol=2e-5), \
-                f"aniso lattice (pallas={pallas}) differs in {f}"
+    X, ov, aux = lattice_heun_steps(
+        5, 1, relu_force, friction_w_neighbour, "com", (16, 8, 8),
+        16, 2, X0, ov0, jnp.int32(n), jnp.float32(0.1),
+        jnp.float32(1.0), jnp.int32(0), None)
+    for k, v in aux.items():
+        if k.startswith("__err"):
+            assert float(np.max(np.asarray(v))) == 0, k
+    for f in ("x", "y", "z"):
+        got = np.asarray(getattr(X, f))[:n]
+        ref = getattr(ht, f)[:n]
+        assert np.allclose(got, ref, atol=2e-5), \
+            f"aniso lattice differs in {f}"
 
 
 def test_lattice_aniso_rebin_flags_clean():
@@ -56,76 +52,8 @@ def test_lattice_aniso_rebin_flags_clean():
     X, ov, aux = lattice_heun_steps(
         8, 4, relu_force, friction_w_neighbour, "com", (16, 8, 8), 16, 2,
         X0, ov0, jnp.int32(n), jnp.float32(0.01), jnp.float32(1.2),
-        jnp.int32(0), None, False, None, None, jnp.float32(1.0),
-        0, 16, 2048)
+        jnp.int32(0), None, None, None, jnp.float32(1.0), 2048)
     for k, v in aux.items():
         if k.startswith("__err"):
             assert float(np.max(np.asarray(v))) == 0, k
     assert np.isfinite(np.asarray(X.x)[:n]).all()
-
-
-def test_lattice_aniso_extras_matches_tile():
-    """One deliberately over-full cube spills into the extras side list
-    on an anisotropic grid; trajectory must still match the all-pairs
-    oracle exactly (per-pass rebuild)."""
-    n = 96
-    tile = Solution(Float3, n, solver="tile")
-    n_pad = tile.n_pad
-    rng = np.random.default_rng(7)
-    pos = rng.uniform(-1, 1, (n_pad, 3)).astype(np.float32) * [5.0, 2.0, 1.5]
-    pos[:8] = [0.2, 0.2, 0.2] + rng.uniform(0, 0.28, (8, 3)).astype(
-        np.float32)  # 8 cells in one cube > capacity 6
-    X0 = Float3(x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]),
-                z=jnp.asarray(pos[:, 2]))
-    ov0 = Float3.zeros(n_pad)
-    tile.h_X.x[:], tile.h_X.y[:], tile.h_X.z[:] = pos.T
-    tile.copy_to_device()
-    for _ in range(4):
-        tile.take_step(0.05, relu_force)
-    ht = tile.copy_to_host()
-
-    # gx * C = 16 * 6 = 96 is not lane-aligned; use C = 8 minus extras:
-    # capacity 4 with the over-full cube spilling to extras
-    X, ov, aux = lattice_heun_steps(
-        4, 1, relu_force, friction_w_neighbour, "com", (32, 8, 8), 4, 2,
-        X0, ov0, jnp.int32(n), jnp.float32(0.05), jnp.float32(1.0),
-        jnp.int32(0), None, True, None, None, jnp.float32(1.0), 256, 8)
-    for k, v in aux.items():
-        if k.startswith("__err"):
-            assert float(np.max(np.asarray(v))) == 0, k
-    for f in ("x", "y", "z"):
-        got = np.asarray(getattr(X, f))[:n]
-        ref = getattr(ht, f)[:n]
-        assert np.allclose(got, ref, atol=2e-5), \
-            f"aniso extras path differs in {f}"
-
-
-def test_gabriel_lattice_aniso_matches_gather():
-    from yalla_tpu.ops.gabriel_pallas import gabriel_lattice_pallas
-    from yalla_tpu.ops.grid_xla import gabriel_pairwise
-
-    def clipped_spring(Xi, r, dist, i, j):
-        near = (i != j) & (dist < 1.0)
-        w = jnp.where(near, (0.8 - dist), 0.0)
-        safe = jnp.where(dist > 0, dist, 1.0)
-        return Float3(x=r.x * w / safe, y=r.y * w / safe,
-                      z=r.z * w / safe)
-
-    n, n_pad = 400, 512
-    _, X0, _ = _elongated(n_pad)
-    ov0 = Float3.zeros(n_pad)
-    a = gabriel_pairwise(clipped_spring, friction_w_neighbour, X0, ov0,
-                         jnp.int32(n), jnp.float32(1.0), grid_size=16,
-                         row_cap=48, max_candidates=64)
-    b = gabriel_lattice_pallas(clipped_spring, friction_w_neighbour, X0,
-                               ov0, jnp.int32(n), jnp.float32(1.0),
-                               grid_size=(16, 8, 8), capacity=16,
-                               max_candidates=20)
-    for k, v in b[3].items():
-        if k.startswith("__err"):
-            assert float(np.max(np.asarray(v))) == 0, k
-    for f in ("x", "y", "z"):
-        fa = np.asarray(getattr(a[0], f))[:n]
-        fb = np.asarray(getattr(b[0], f))[:n]
-        assert np.allclose(fa, fb, atol=1e-5), \
-            f"aniso Gabriel differs in {f}"

@@ -1,10 +1,8 @@
-"""central_force / MXU all-pairs engine (ops/central_mxu.py).
+"""central_force declarations (ops/common.py).
 
-The central declaration must (a) satisfy the generic pairwise contract
-exactly -- same numbers as a handwritten force on the generic tile
-engine -- and (b) match the generic path *statistically* on the MXU
-kernel (the matmul form of dist^2 rounds differently; module docs).
-Physics fixture: the reference's differential-adhesion sorting force
+The central declaration must satisfy the generic pairwise contract on
+every engine -- same numbers as a handwritten force on the all-pairs
+engine, and the same sums on the sweep kernel.  Physics fixture: the reference's differential-adhesion sorting force
 (examples/sorting.cu:16-28) whose type-pair strength table is exactly
 bilinear in the two type bits.
 """
@@ -14,10 +12,9 @@ import numpy as np
 
 from helpers import isclose
 from yalla_tpu.dtypes import Float3, make_pt
-from yalla_tpu.ops.central_mxu import central_force, central_pairwise_mxu
-from yalla_tpu.ops.common import friction_w_neighbour
+from yalla_tpu.ops.common import central_force, friction_w_neighbour
 from yalla_tpu.ops.pairwise_xla import tile_pairwise
-from yalla_tpu.solvers import TileEngine, heun_steps
+from yalla_tpu.solvers import SweepEngine, TileEngine, heun_steps
 
 Cell = make_pt("CentralCell", "ctype")
 R_MAX, R_MIN = 1.0, 0.5
@@ -39,8 +36,7 @@ def handwritten_adhesion(Xi, r, dist, i, j):
 def central_adhesion(aux=None, diag=None):
     """Same physics in central form.  strength(t_i, t_j) on the binary
     type bits is {same 0: 1, same 1: 9, mixed: 3} = 1 + 2 t_i + 2 t_j
-    + 4 t_i t_j -- exactly bilinear, so it rides the MXU as one
-    (BI, 2) x (2, n_pad) matmul."""
+    + 4 t_i t_j -- exactly bilinear in the type bits."""
     def coef(dist, Si, Sj, strength):
         a = jnp.maximum(R_MAX - dist, 0.0)       # 0 past the cutoff
         b = a + 2.0 * (R_MIN - dist)
@@ -85,60 +81,43 @@ def test_central_wrapper_matches_handwritten():
     assert isclose(np.asarray(a[1])[:n], np.asarray(b[1])[:n])
 
 
-def test_central_mxu_matches_generic():
-    """MXU kernel vs generic tile path: forces, friction sums, mean
-    neighbour velocity, and aux counters agree within the reference's
-    tolerance philosophy (minunit.cuh:37)."""
+def test_central_aux_and_diag_on_sweep_kernel():
+    """A central force with an aux counter and an i == j reaction term
+    (ref turing.cu:38-46 idiom, through ``diag``) gives the same sums on
+    the sweep kernel (interpret mode) as on the all-pairs engine."""
     n, n_pad = 300, 384
     X = _ball(n, n_pad)
     ov = Float3(x=X.x * 0.01, y=X.y * -0.02, z=X.z * 0.005)
-    cf = central_adhesion(
-        aux={"nbs": lambda dist, Si, Sj, strength:
-             (dist < R_MAX).astype(jnp.float32)})
-    gen = tile_pairwise(cf, friction_w_neighbour, X, ov, jnp.int32(n))
-    mxu = central_pairwise_mxu(cf, friction_w_neighbour, X, ov,
-                               jnp.int32(n))
-    for f in ("x", "y", "z"):
-        assert isclose(np.asarray(getattr(gen[0], f))[:n],
-                       np.asarray(getattr(mxu[0], f))[:n]), f"F.{f}"
-    assert isclose(np.asarray(gen[1])[:n], np.asarray(mxu[1])[:n]), "sum_f"
-    for c in range(3):
-        assert isclose(np.asarray(gen[2][c])[:n],
-                       np.asarray(mxu[2][c])[:n]), f"sum_v[{c}]"
-    assert isclose(np.asarray(gen[3]["nbs"])[:n],
-                   np.asarray(mxu[3]["nbs"])[:n]), "aux nbs"
-
-
-def test_central_mxu_diag():
-    """i == j reaction terms (ref turing.cu:38-46 idiom) enter through
-    ``diag`` and must match the generic evaluation."""
-    n, n_pad = 150, 256
-    X = _ball(n, n_pad)
-    ov = Float3.zeros(n_pad)
     diag = lambda Xi: Cell(x=jnp.zeros_like(Xi.x), y=jnp.zeros_like(Xi.x),
                            z=jnp.zeros_like(Xi.x),
                            ctype=0.1 * (1.0 - Xi.ctype))
-    cf = central_adhesion(diag=diag)
+    cf = central_adhesion(
+        aux={"nbs": lambda dist, Si, Sj, strength:
+             (dist < R_MAX).astype(jnp.float32)}, diag=diag)
     gen = tile_pairwise(cf, friction_w_neighbour, X, ov, jnp.int32(n))
-    mxu = central_pairwise_mxu(cf, friction_w_neighbour, X, ov,
-                               jnp.int32(n))
-    assert isclose(np.asarray(gen[0].ctype)[:n],
-                   np.asarray(mxu[0].ctype)[:n])
-    assert isclose(np.asarray(gen[0].x)[:n], np.asarray(mxu[0].x)[:n])
+    swp = SweepEngine(grid_size=16, interpret=True).pairwise(
+        cf, friction_w_neighbour, X, ov, jnp.int32(n), jnp.float32(R_MAX))
+    for f in Cell._fields:
+        assert isclose(np.asarray(getattr(gen[0], f))[:n],
+                       np.asarray(getattr(swp[0], f))[:n]), f"F.{f}"
+    assert np.array_equal(np.asarray(gen[1])[:n], np.asarray(swp[1])[:n])
+    for c in range(3):
+        assert isclose(np.asarray(gen[2][c])[:n],
+                       np.asarray(swp[2][c])[:n]), f"sum_v[{c}]"
+    assert np.array_equal(np.asarray(gen[3]["nbs"])[:n],
+                          np.asarray(swp[3]["nbs"])[:n]), "aux nbs"
 
 
-def test_central_mxu_heun_trajectory():
-    """A short Heun integration through TileEngine(mxu=True) tracks the
-    generic engine (statistical agreement; the engines differ only in
-    f32 rounding of dist)."""
+def test_central_heun_trajectory():
+    """A short Heun integration of the central declaration tracks the
+    handwritten functor on the all-pairs engine."""
     n, n_pad = 200, 256
     X = _ball(n, n_pad)
     ov = Float3.zeros(n_pad)
-    cf = central_adhesion()
-    args = (cf, friction_w_neighbour, None, "com", X, ov, jnp.int32(n),
+    rest = (friction_w_neighbour, None, "com", X, ov, jnp.int32(n),
             jnp.float32(0.05), jnp.float32(1.0), jnp.int32(0), None)
-    Xa, _, aux_a = heun_steps(4, TileEngine(mxu=False, pallas=False), *args)
-    Xb, _, aux_b = heun_steps(4, TileEngine(mxu=True), *args)
+    Xa, _, aux_a = heun_steps(4, TileEngine(), handwritten_adhesion, *rest)
+    Xb, _, aux_b = heun_steps(4, TileEngine(), central_adhesion(), *rest)
     for f in ("x", "y", "z"):
         assert isclose(np.asarray(getattr(Xa, f))[:n],
                        np.asarray(getattr(Xb, f))[:n]), f

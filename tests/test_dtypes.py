@@ -1,5 +1,5 @@
 """Port of the reference's point-algebra tests
-(``/root/reference/tests/test_dtypes.cu``)."""
+(``tests/test_dtypes.cu``)."""
 import numpy as np
 
 from helpers import isclose

@@ -180,7 +180,7 @@ def test_branching_example(outdir):
 
 
 def test_branching_resume(outdir):
-    """A tunnel outage mid-run resumes from the periodic checkpoint with
+    """An interrupted run resumes from the periodic checkpoint with
     loop bookkeeping (frame index, tier, counters) intact."""
     import sys
 

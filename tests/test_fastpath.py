@@ -119,25 +119,6 @@ def test_lattice_matches_tile():
     assert isclose(np.asarray(X.z)[:n], ht.z[:n]), "lattice disagrees in z"
 
 
-def test_lattice_pallas_matches_tile():
-    """The Pallas lattice kernel (interpret mode on CPU) vs all-pairs."""
-    n = 30
-    tile = Solution(Float3, n, solver="tile")
-    random_sphere(0.9, tile, rng=np.random.default_rng(78))
-    X0, ov0 = tile.d_X, tile.d_old_v
-    for _ in range(2):
-        tile.take_step(0.1, _spring)
-    ht = tile.copy_to_host()
-
-    X, ov, aux = lattice_heun_steps(
-        2, 1, _spring, friction_w_neighbour, "com", 16, 8, 2,
-        X0, ov0, jnp.int32(n), jnp.float32(0.1), jnp.float32(1.0),
-        jnp.int32(0), None, True)
-    assert isclose(np.asarray(X.x)[:n], ht.x[:n]), "pallas disagrees in x"
-    assert isclose(np.asarray(X.y)[:n], ht.y[:n]), "pallas disagrees in y"
-    assert isclose(np.asarray(X.z)[:n], ht.z[:n]), "pallas disagrees in z"
-
-
 def test_lattice_resident_mode():
     """rebuild_every > 1 stays finite and close for vanishing-at-cutoff
     forces (relu band)."""
@@ -159,46 +140,6 @@ def test_lattice_resident_mode():
     # relu_force vanishes smoothly at dist=1 -> stale binning error stays
     # small relative to the motion scale (~unit cell distances)
     assert np.abs(xs - ht.x[:n]).max() < 0.05
-
-
-def test_lattice_pallas_branching_force():
-    """The Pallas kernel's liveness pruning + diagonal hoisting + offdiag
-    split must be invisible: full branching force (polarity precompute,
-    Meinhardt diag terms, aux counters) vs the XLA resident path."""
-    from yalla_tpu.models import branching as B
-    from yalla_tpu.polarity import polarity_precompute
-
-    p = B.Params()
-    force = B.make_force(p)
-    n = 40
-    rng2 = np.random.default_rng(5)
-    n_pad = 64
-    pos = rng2.normal(size=(n_pad, 3)).astype(np.float32) * 1.5
-    X0 = B.Cell(
-        x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]),
-        z=jnp.asarray(pos[:, 2]),
-        theta=jnp.asarray(rng2.random(n_pad, np.float32) * 3),
-        phi=jnp.asarray(rng2.random(n_pad, np.float32) * 6 - 3),
-        u=jnp.asarray(rng2.random(n_pad, np.float32)),
-        v=jnp.asarray(rng2.random(n_pad, np.float32)),
-        ctype=jnp.asarray((rng2.random(n_pad) > 0.4).astype(np.float32)))
-    ov0 = Float3(jnp.asarray(rng2.normal(size=n_pad).astype(np.float32) * .1),
-                 jnp.zeros(n_pad), jnp.zeros(n_pad))
-
-    def run(pallas):
-        return lattice_heun_steps(
-            3, 1, force, friction_w_neighbour, "com", 16, 8, 2,
-            X0, ov0, jnp.int32(n), jnp.float32(p.dt), jnp.float32(p.r_max),
-            jnp.int32(0), polarity_precompute, pallas)
-
-    Xa, _, auxa = run(False)
-    Xb, _, auxb = run(True)
-    for f in B.Cell._fields:
-        assert isclose(np.asarray(getattr(Xa, f))[:n],
-                       np.asarray(getattr(Xb, f))[:n]), f"pallas {f}"
-    for k in ("epi_nbs", "mes_nbs"):
-        assert np.array_equal(np.asarray(auxa[k])[:n],
-                              np.asarray(auxb[k])[:n]), k
 
 
 def test_lattice_gen_forces_match_tile():
@@ -239,11 +180,11 @@ def test_lattice_gen_forces_match_tile():
     ref = np.stack([np.asarray(sol_t.d_X.x), np.asarray(sol_t.d_X.y),
                     np.asarray(sol_t.d_X.z)])[:, :n]
 
-    def run_lattice(rebuild_every, pallas):
+    def run_lattice(rebuild_every):
         sol_l = Solution(
             Float3, n, cube_size=1.0,
             engine=LatticeEngine(grid_size=16, capacity=16, z_block=2,
-                                 rebuild_every=rebuild_every, pallas=pallas))
+                                 rebuild_every=rebuild_every))
         sol_l.h_X.x[:], sol_l.h_X.y[:], sol_l.h_X.z[:] = start
         sol_l.copy_to_device()
         sol_l.take_steps(4, 0.1, relu_force,
@@ -252,17 +193,13 @@ def test_lattice_gen_forces_match_tile():
                          np.asarray(sol_l.d_X.z)])[:, :n]
 
     # per-pass rebuild is reference-exact: must match the tile oracle
-    for pallas in (True, False):
-        got = run_lattice(1, pallas)
-        assert np.allclose(ref, got, atol=2e-5), (
-            f"lattice(rebuild=1, pallas={pallas}) diverges from tile "
-            f"with links: {np.abs(ref - got).max()}")
-    # resident mode (rebuild_every=4): links translate through the slot
-    # map identically in both kernels -- the pallas and XLA paths must
-    # agree exactly (vs tile only the pair binning staleness differs)
-    a, b = run_lattice(4, True), run_lattice(4, False)
-    assert np.allclose(a, b, atol=2e-5), (
-        f"resident pallas vs XLA with links: {np.abs(a - b).max()}")
+    got = run_lattice(1)
+    assert np.allclose(ref, got, atol=2e-5), (
+        f"lattice(rebuild=1) diverges from tile with links: "
+        f"{np.abs(ref - got).max()}")
+    # resident mode (rebuild_every=4): vs tile only the pair binning
+    # staleness differs
+    a = run_lattice(4)
     assert np.allclose(ref, a, atol=0.05), (
         f"resident lattice links path unphysically far from tile: "
         f"{np.abs(ref - a).max()}")
@@ -379,7 +316,7 @@ def test_resident_staleness_flag():
         return lattice_heun_steps(
             8, 4, relu_force, friction_w_neighbour, "com", 16, 16, 4,
             pts.d_X, pts.d_old_v, jnp.int32(n), jnp.float32(dt),
-            jnp.float32(1.3), jnp.int32(0), None, False, None, None,
+            jnp.float32(1.3), jnp.int32(0), None, None, None,
             jnp.float32(1.0))
 
     _, _, aux_slow = run(0.002)
@@ -417,7 +354,7 @@ def test_resident_staleness_collective_flow_not_flagged():
     X1, ov1, aux = lattice_heun_steps(
         4, 4, no_force, friction_w_neighbour, "com", 16, 24, 4,
         X, ov, jnp.int32(n), jnp.float32(0.1), jnp.float32(1.3),
-        jnp.int32(0), None, False, None, None, jnp.float32(1.0))
+        jnp.int32(0), None, None, None, jnp.float32(1.0))
     d = float(aux["stale_max_disp"])
     margin = 1.3 - 1.0
     assert 2 * d > margin, \
@@ -454,7 +391,7 @@ def test_resident_staleness_radial_flow_not_flagged():
     _, _, aux = lattice_heun_steps(
         4, 4, no_force, friction_w_neighbour, "com", 16, 24, 4,
         X, ov, jnp.int32(n), jnp.float32(0.1), jnp.float32(1.1),
-        jnp.int32(0), None, False, None, None, jnp.float32(1.0))
+        jnp.int32(0), None, None, None, jnp.float32(1.0))
     d = float(aux["stale_max_disp"])
     assert 2 * d > 1.1 - 1.0, \
         f"expansion too slow to discriminate the bounds (disp={d})"
@@ -497,7 +434,7 @@ def test_resident_staleness_lateral_slip_not_flagged():
     _, _, aux = lattice_heun_steps(
         4, 4, no_force, friction_w_neighbour, "point", 24, 24, 4,
         X, ov, jnp.int32(n), jnp.float32(0.5), jnp.float32(0.8),
-        jnp.int32(0), None, False, None, None, jnp.float32(0.55))
+        jnp.int32(0), None, None, None, jnp.float32(0.55))
     d = float(aux["stale_max_disp"])
     assert 2 * d > 0.8 - 0.55, f"slip too slow to discriminate (disp={d})"
     assert 2 * d < 2 * 0.8 - 0.55, f"slip trips the >=3-apart fallback"
@@ -538,7 +475,7 @@ def test_resident_staleness_diagonal_escape_flagged():
     _, _, aux = lattice_heun_steps(
         4, 4, no_force, friction_w_neighbour, "point", 16, 8, 4,
         X, ov, jnp.int32(4), jnp.float32(1.0), jnp.float32(1.1),
-        jnp.int32(0), None, False, None, None, jnp.float32(1.0))
+        jnp.int32(0), None, None, None, jnp.float32(1.0))
     d = float(aux["stale_max_disp"])
     assert 2 * d < 2 * 1.1 - 1.0, "fallback fired; test must isolate " \
         "the diagonal term"
@@ -561,10 +498,10 @@ def test_rebin_resident_matches_stable_resident():
     ov = Float3.zeros(n_pad)
     common = (relu_force, friction_w_neighbour, "com", 16, 16, 2, X, ov,
               jnp.int32(n), jnp.float32(0.01), jnp.float32(1.2),
-              jnp.int32(0), None, False, None, None, jnp.float32(1.0))
+              jnp.int32(0), None, None, None, jnp.float32(1.0))
     ref = lattice_heun_steps(8, 4, *common)
     for rebuild in (4, 1):
-        out = lattice_heun_steps(8, rebuild, *common, 0, 16, 2048)
+        out = lattice_heun_steps(8, rebuild, *common, 2048)
         for k, v in out[2].items():
             if k.startswith("__err"):
                 assert float(np.max(v)) == 0.0, (rebuild, k)
@@ -591,9 +528,9 @@ def test_rebin_per_pass_matches_per_pass_build():
     ov = Float3.zeros(n_pad)
     common = (relu_force, friction_w_neighbour, "com", 16, 16, 2, X, ov,
               jnp.int32(n), jnp.float32(0.01), jnp.float32(1.2),
-              jnp.int32(0), None, False, None, None, jnp.float32(1.0))
+              jnp.int32(0), None, None, None, jnp.float32(1.0))
     ref = lattice_heun_steps(8, 1, *common)
-    out = lattice_heun_steps(8, 1, *common, 0, 16, 2048, True)
+    out = lattice_heun_steps(8, 1, *common, 2048, True)
     for k, v in out[2].items():
         if k.startswith("__err"):
             assert float(np.max(v)) == 0.0, (k, float(np.max(v)))
@@ -602,29 +539,3 @@ def test_rebin_per_pass_matches_per_pass_build():
     dov = max(float(jnp.max(jnp.abs(a - b))) for a, b in
               zip(jax.tree.leaves(out[1]), jax.tree.leaves(ref[1])))
     assert d < 1e-5 and dov < 1e-5, (d, dov)
-
-
-def test_rebin_per_pass_with_extras_matches():
-    """Per-pass rebin composes with overflow extras: cells spilling a
-    full cube ride the side list; trajectories match chunk_exact."""
-    from yalla_tpu.inits import relu_force
-    from yalla_tpu.ops.common import friction_w_neighbour
-
-    rng = np.random.default_rng(1)
-    n, n_pad = 900, 1024
-    pos = rng.normal(0, 2.0, (n_pad, 3)).astype(np.float32)
-    X = Float3(x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]),
-               z=jnp.asarray(pos[:, 2]))
-    ov = Float3.zeros(n_pad)
-    common = (relu_force, friction_w_neighbour, "com", 16, 8, 2, X, ov,
-              jnp.int32(n), jnp.float32(0.01), jnp.float32(1.2),
-              jnp.int32(0), None, True, None, None, jnp.float32(1.0))
-    ref = lattice_heun_steps(6, 1, *common, 512, 64, 0)
-    out = lattice_heun_steps(6, 1, *common, 512, 64, 2048, True)
-    for tag, o in (("ref", ref), ("perpass", out)):
-        for k, v in o[2].items():
-            if k.startswith("__err"):
-                assert float(np.max(v)) == 0.0, (tag, k, float(np.max(v)))
-    d = max(float(jnp.max(jnp.abs(a - b))) for a, b in
-            zip(jax.tree.leaves(out[0])[:3], jax.tree.leaves(ref[0])[:3]))
-    assert d < 1e-4, d

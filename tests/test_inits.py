@@ -1,4 +1,4 @@
-"""Port of the reference's IC tests (``/root/reference/tests/test_inits.cu``):
+"""Port of the reference's IC tests (``tests/test_inits.cu``):
 relaxed spheres/cuboids reach equilibrium (mean step displacement < 5e-4)
 with correct neighbour spacing and bounds.  Sizes are reduced vs the
 reference's 5000 cells to keep the CPU test mesh fast; the physics contract

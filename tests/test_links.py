@@ -1,4 +1,4 @@
-"""Port of the reference's link tests (``/root/reference/tests/test_links.cu``):
+"""Port of the reference's link tests (``tests/test_links.cu``):
 a square of four relaxing under link springs, and custom link forces on a
 non-positional field."""
 import jax

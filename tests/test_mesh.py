@@ -1,4 +1,4 @@
-"""Port of the reference's mesh tests (``/root/reference/tests/test_mesh.cu``):
+"""Port of the reference's mesh tests (``tests/test_mesh.cu``):
 transforms vs analytic bounds, torus inclusion vs analytic ring distance,
 and Chamfer distance 0 / 0.1 after grow_normally(0.1).  Fixture:
 ``tests/torus.vtk`` (copied verbatim -- it is a data file)."""

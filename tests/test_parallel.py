@@ -113,57 +113,6 @@ def test_lattice_z_slab_sharded_matches_single():
     assert len(np.unique(cz // (gs // 8))) >= 4
 
 
-def test_lattice_z_slab_sharded_pallas_matches_single():
-    """The Pallas kernel under the z-slab decomposition (exchanged halo
-    planes riding the kernel's j-side z pads) reproduces the single-chip
-    trajectory -- multi-chip inherits the single-chip kernel instead of
-    falling back to the XLA core (round-2 gap)."""
-    from yalla_tpu.inits import relu_force
-    from yalla_tpu.ops.lattice_xla import lattice_heun_steps
-    from yalla_tpu.parallel.lattice_spmd import (lattice_sharded_heun_steps,
-                                                 make_z_mesh)
-
-    n = 3_000
-    n_pad = 3_072
-    gs, C, zb = 32, 8, 2
-    rng = np.random.default_rng(13)
-    side = int(np.ceil(n ** (1 / 3)))
-    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
-                 -1).reshape(-1, 3)[:n_pad]
-    pos = (g - side / 2) * 0.75 + rng.uniform(-0.15, 0.15, (len(g), 3))
-    pos = np.concatenate(
-        [pos, np.zeros((max(0, n_pad - len(pos)), 3))])[:n_pad]
-    X0 = Float3(x=jnp.asarray(pos[:, 0], jnp.float32),
-                y=jnp.asarray(pos[:, 1], jnp.float32),
-                z=jnp.asarray(pos[:, 2], jnp.float32))
-    ov0 = Float3.zeros(n_pad)
-    args = (jnp.int32(n), jnp.float32(0.1), jnp.float32(1.0), jnp.int32(0))
-
-    Xs, ovs, auxs = lattice_heun_steps(
-        4, 2, relu_force, friction_w_neighbour, "com", gs, C, zb,
-        X0, ov0, *args)
-
-    mesh = make_z_mesh()
-
-    @jax.jit
-    def run(X0, ov0, n, dt, cs, fp):
-        return lattice_sharded_heun_steps(
-            mesh, 4, 2, relu_force, friction_w_neighbour, "com",
-            gs, C, zb, X0, ov0, n, dt, cs, fp, pallas=True)
-
-    Xm, ovm, auxm = run(X0, ov0, *args)
-    assert int(auxm["__err_lattice_dropped"]) == 0
-    assert not bool(auxm["__err_non_finite"])
-    for f in ("x", "y", "z"):
-        a = np.asarray(getattr(Xs, f))[:n]
-        b = np.asarray(getattr(Xm, f))[:n]
-        assert np.allclose(a, b, atol=5e-5), \
-            f"sharded pallas lattice diverges in {f}: {np.abs(a - b).max()}"
-    # the halo exchange is exercised: cells span multiple z slabs
-    cz = np.clip(np.floor(pos[:n, 2]) + gs // 2, 0, gs - 1)
-    assert len(np.unique(cz // (gs // 8))) >= 4
-
-
 def test_resident_sharded_links_match_single():
     """Links INSIDE the resident sharded loop (all_gather to stable order,
     replicated hook, slab-local scatter) match the single-chip resident
@@ -199,7 +148,7 @@ def test_resident_sharded_links_match_single():
 
     Xs, ovs, auxs = lattice_heun_steps(
         4, 2, clipped_spring, friction_w_neighbour, "com", gs, C, zb,
-        X0, ov0, *args, None, False, gen_static, gen.args)
+        X0, ov0, *args, None, gen_static, gen.args)
     assert int(auxs["__err_lattice_dropped"]) == 0
 
     mesh = make_z_mesh()

@@ -1,5 +1,5 @@
 """Port of the reference's polarity tests
-(``/root/reference/tests/test_polarity.cu``): transform round trips,
+(``tests/test_polarity.cu``): transform round trips,
 known-value forces, great-circle relaxation, epithelial line equilibrium,
 and migration force antisymmetry."""
 import math

@@ -1,5 +1,5 @@
 """Port of the reference's integrator/engine tests
-(``/root/reference/tests/test_solvers.cu``): Heun accuracy, equilibrium
+(``tests/test_solvers.cu``): Heun accuracy, equilibrium
 fixed points, COM conservation, tile-vs-grid consistency, friction
 semantics, spatial-hash structure, and Gabriel neighbour counts."""
 import jax
@@ -290,24 +290,6 @@ def test_gabriel_solver():
             f"Wrong number of neighbours at {i}: {n_nbs[i]}"
 
 
-def test_gabriel_lattice_autoselect_rules():
-    """VERDICT r3 task 5: GabrielEngine auto-selects the dense-lattice
-    Pallas kernel (lattice=None) the way TileEngine auto-selects its
-    fused kernel -- on TPU, unsharded, when the kernel's shape rules
-    hold.  The resolution logic is backend-independent; this pins the
-    shape gate and that defaults leave the choice open."""
-    from yalla_tpu.solvers import GabrielEngine
-    assert GabrielEngine().lattice is None       # auto by default
-    assert GabrielEngine(grid_size=64)._lattice_fits()       # 64*8 % 128
-    assert GabrielEngine(grid_size=(64, 48, 48))._lattice_fits()
-    assert not GabrielEngine(grid_size=50)._lattice_fits()   # 50*8 = 400
-    assert not GabrielEngine(grid_size=64, capacity=7)._lattice_fits()
-    # explicit lattice=True/False still forces the choice (hexagon and
-    # matches-gather tests above/below pin both paths' physics)
-    assert GabrielEngine(grid_size=64, lattice=True).lattice is True
-    assert GabrielEngine(lattice=False).lattice is False
-
-
 def test_gabriel_windowed_matches_gather():
     """The sorted-order shared-window Gabriel formulation reproduces the
     per-point gather formulation (forces, friction sums, and kept-pair
@@ -344,46 +326,6 @@ def test_gabriel_windowed_matches_gather():
                        atol=1e-5), "sum_friction differs"
 
 
-def test_gabriel_lattice_pallas_matches_gather():
-    """The dense-lattice Pallas Gabriel kernel (in-VMEM candidate
-    compaction, ops/gabriel_pallas.py) reproduces the per-point gather
-    formulation exactly (forces, friction sums, kept-pair structure)."""
-    import jax.numpy as jnp
-    import numpy as np
-    from yalla_tpu.ops.common import friction_w_neighbour
-    from yalla_tpu.ops.gabriel_pallas import gabriel_lattice_pallas
-    from yalla_tpu.ops.grid_xla import gabriel_pairwise
-
-    rng = np.random.default_rng(17)
-    n, n_pad = 700, 768
-    pos = rng.uniform(-4, 4, (n_pad, 3)).astype(np.float32)
-    X = Float3(x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]),
-               z=jnp.asarray(pos[:, 2]))
-    ov = Float3(x=jnp.asarray(rng.random(n_pad), jnp.float32),
-                y=jnp.asarray(rng.random(n_pad), jnp.float32),
-                z=jnp.asarray(rng.random(n_pad), jnp.float32))
-
-    a = gabriel_pairwise(clipped_spring, friction_w_neighbour, X, ov,
-                         jnp.int32(n), jnp.float32(1.0), grid_size=16,
-                         row_cap=48, max_candidates=64)
-    b = gabriel_lattice_pallas(clipped_spring, friction_w_neighbour, X, ov,
-                               jnp.int32(n), jnp.float32(1.0),
-                               grid_size=16, capacity=8, max_candidates=20)
-    for k, v in b[3].items():
-        if k.startswith("__err"):
-            assert float(np.max(np.asarray(v))) == 0, k
-    for f in ("x", "y", "z"):
-        fa = np.asarray(getattr(a[0], f))[:n]
-        fb = np.asarray(getattr(b[0], f))[:n]
-        assert np.allclose(fa, fb, atol=1e-5), \
-            f"lattice Gabriel force differs in {f}: {np.abs(fa - fb).max()}"
-    assert np.allclose(np.asarray(a[1])[:n], np.asarray(b[1])[:n],
-                       atol=1e-5), "sum_friction differs"
-    for c in range(3):
-        assert np.allclose(np.asarray(a[2][c])[:n], np.asarray(b[2][c])[:n],
-                           atol=1e-5), f"sum_v[{c}] differs"
-
-
 def test_gabriel_stable_id_semantics():
     """Reference forces use point ids beyond i == j (growth_w_wall.cu's
     wall-node exclusion by index): every Gabriel formulation must hand
@@ -392,7 +334,6 @@ def test_gabriel_stable_id_semantics():
     import jax.numpy as jnp
     import numpy as np
     from yalla_tpu.ops.common import friction_w_neighbour
-    from yalla_tpu.ops.gabriel_pallas import gabriel_lattice_pallas
     from yalla_tpu.ops.grid_xla import gabriel_pairwise, gabriel_windowed
 
     def wall_spring(Xi, r, dist, i, j):
@@ -415,10 +356,8 @@ def test_gabriel_stable_id_semantics():
                          max_candidates=64)
     w = gabriel_windowed(*args, grid_size=16, i_block=64, window_cap=256,
                          max_candidates=64)
-    l = gabriel_lattice_pallas(*args, grid_size=16, capacity=8,
-                               max_candidates=20)
     assert float(np.abs(np.asarray(a[0].x)[0])) == 0, "wall node must sit still"
-    for name, got in (("windowed", w), ("lattice", l)):
+    for name, got in (("windowed", w),):
         for f in ("x", "y", "z"):
             fa = np.asarray(getattr(a[0], f))[:n]
             fb = np.asarray(getattr(got[0], f))[:n]

@@ -115,8 +115,8 @@ def test_proliferate_capacity_loss_reported():
 
 
 def test_auto_solver():
-    """solver='auto': tile below the crossover, Pallas-less lattice on CPU
-    above; physics matches the all-pairs oracle."""
+    """solver='auto': tile below the crossover, the XLA lattice on the
+    CPU above; physics matches the all-pairs oracle."""
     from yalla_tpu import LatticeEngine as LE, Solution as S, TileEngine
     small = S(Float3, 100, solver="auto")
     random_sphere(0.8, small)

@@ -1,5 +1,5 @@
 """Port of the reference's VTK round-trip test
-(``/root/reference/tests/test_vtk.cu``): write then read positions,
+(``tests/test_vtk.cu``): write then read positions,
 polarity, fields, and int/float properties."""
 import math
 

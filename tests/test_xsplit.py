@@ -1,14 +1,13 @@
 """Thin-x lattice cubes (``x_split > 1``).
 
 ``x_split=2`` bins x at ``cube_size / 2``: capacity tracks the HALF-cube
-occupancy (roughly half the isotropic one) while the kernels sweep
+occupancy (roughly half the isotropic one) while the pair pass sweeps
 ``+-2`` x-neighbours to keep the full ``cube_size`` interaction reach --
-total flat shifts go ``4C - 1 -> 6C' - 1``, ~1.35x fewer hot-loop
-iterations at ``C' = C/2`` (the 500k kernel-cost lever, BASELINE.md
-round-4).  These tests pin that the split binning is *physics-exact*
-against the all-pairs oracle through every per-pass cadence: XLA
-resident stencil, Pallas kernel, overflow extras, and slot-space
-rebinning (cf. the cross-solver oracle, ref tests/test_solvers.cu:102-125).
+total flat shifts go ``4C - 1 -> 6C' - 1`` at ``C' = C/2``.  These tests
+pin that the split binning is *physics-exact* against the all-pairs
+oracle through every per-pass cadence: XLA resident stencil and
+slot-space rebinning (cf. the cross-solver oracle, ref
+tests/test_solvers.cu:102-125).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -43,90 +42,38 @@ def _assert_clean(aux):
 
 
 def test_xsplit_matches_tile():
-    """x_split=2 lattice (XLA and Pallas) == all-pairs, per-pass rebuild.
+    """x_split=2 lattice == all-pairs, per-pass rebuild.
 
     The grid is (32, 8, 8) with the 32 x-cubes HALF-width (x spans the
     same extent as 16 isotropic cubes); capacity 8 covers the half-cube occupancy (5 at this IC).
     """
     n = 400
-    ht = None
-    for pallas in (False, True):
-        pos, X0, ov0 = _ball(512)
-        if ht is None:
-            ht = _tile_oracle(pos, n, 5, 0.1)
-        X, ov, aux = lattice_heun_steps(
-            5, 1, relu_force, friction_w_neighbour, "com", (32, 8, 8),
-            8, 2, X0, ov0, jnp.int32(n), jnp.float32(0.1),
-            jnp.float32(1.0), jnp.int32(0), None, pallas,
-            None, None, None, 0, 16, 0, False, 0.0, 2)
-        _assert_clean(aux)
-        for f in ("x", "y", "z"):
-            got = np.asarray(getattr(X, f))[:n]
-            ref = getattr(ht, f)[:n]
-            assert np.allclose(got, ref, atol=2e-5), \
-                f"x_split lattice (pallas={pallas}) differs in {f}"
-
-
-def test_xsplit_extras_matches_tile():
-    """A deliberately over-full half-cube spills to the extras side list;
-    the split Pallas kernel's trajectory must still match the oracle."""
-    n = 96
-    rng = np.random.default_rng(7)
-    tile = Solution(Float3, n, solver="tile")
-    n_pad = tile.n_pad
-    pos = rng.uniform(-1, 1, (n_pad, 3)).astype(np.float32) * [4.0, 2.0, 1.5]
-    # 6 cells inside one half-cube (x width 0.5) > capacity 4
-    pos[:6] = [0.2, 0.2, 0.2] + rng.uniform(0, 0.24, (6, 3)).astype(
-        np.float32)
-    tile.h_X.x[:], tile.h_X.y[:], tile.h_X.z[:] = pos.T
-    tile.copy_to_device()
-    for _ in range(4):
-        tile.take_step(0.05, relu_force)
-    ht = tile.copy_to_host()
-
-    X0 = Float3(x=jnp.asarray(pos[:, 0]), y=jnp.asarray(pos[:, 1]),
-                z=jnp.asarray(pos[:, 2]))
-    ov0 = Float3.zeros(n_pad)
-    # gx = 32 half-cubes cover |x| <= 8 at cube_size 1.0; W = 32*4 = 128
+    pos, X0, ov0 = _ball(512)
+    ht = _tile_oracle(pos, n, 5, 0.1)
     X, ov, aux = lattice_heun_steps(
-        4, 1, relu_force, friction_w_neighbour, "com", (32, 8, 8), 4, 2,
-        X0, ov0, jnp.int32(n), jnp.float32(0.05), jnp.float32(1.0),
-        jnp.int32(0), None, True, None, None, jnp.float32(1.0), 256, 8,
-        0, False, 0.0, 2)
+        5, 1, relu_force, friction_w_neighbour, "com", (32, 8, 8),
+        8, 2, X0, ov0, jnp.int32(n), jnp.float32(0.1),
+        jnp.float32(1.0), jnp.int32(0), None,
+        None, None, None, 0, False, 2)
     _assert_clean(aux)
     for f in ("x", "y", "z"):
         got = np.asarray(getattr(X, f))[:n]
         ref = getattr(ht, f)[:n]
         assert np.allclose(got, ref, atol=2e-5), \
-            f"x_split extras path differs in {f}"
+            f"x_split lattice differs in {f}"
 
 
 def test_xsplit_capacity2_matches_tile():
     """C=2 half-cubes (the smallest capacity the bench planner admits for
     x_split plans, bench.py planner C rungs): lane arithmetic at tiny C is
-    a distinct kernel corner (slot index = lane % C wraps every 2 lanes).
-    Pallas leg: random ball, overflow extras absorb every over-full
-    half-cube.  XLA leg (no extras sidecar): jittered grid IC at spacing
+    a distinct corner (slot index = lane % C wraps every 2 lanes).
+    Jittered grid IC at spacing
     (0.9, 1.1, 1.1), so every half-cube holds exactly one point by
     construction (x half-cubes are 0.5 wide < 0.9 spacing; y/z cubes are
     1.0 wide < 1.1 - jitter spacing) while x-neighbour pairs still
     interact inside the 1.0 cutoff -- exercising the split +-2x stencil."""
     n = 400
-    pos, X0, ov0 = _ball(512, seed=13, scale=(6.0, 3.0, 3.0))
-    ht = _tile_oracle(pos, n, 4, 0.05)
-    X, ov, aux = lattice_heun_steps(
-        4, 1, relu_force, friction_w_neighbour, "com", (64, 8, 8),
-        2, 2, X0, ov0, jnp.int32(n), jnp.float32(0.05),
-        jnp.float32(1.0), jnp.int32(0), None, True, None, None,
-        jnp.float32(1.0), 1024, 32, 0, False, 0.0, 2)
-    _assert_clean(aux)
-    for f in ("x", "y", "z"):
-        got = np.asarray(getattr(X, f))[:n]
-        ref = np.asarray(getattr(ht, f))[:n]
-        assert np.allclose(got, ref, atol=2e-5), \
-            f"x_split C=2 (pallas) differs in {f}"
-
-    # XLA leg: grid IC, max half-cube occupancy <= 2
+    # grid IC, max half-cube occupancy <= 2
     rng = np.random.default_rng(17)
     g = np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(8),
                              indexing="ij"), -1).reshape(-1, 3)[:512]
@@ -138,14 +85,14 @@ def test_xsplit_capacity2_matches_tile():
     X, ov, aux = lattice_heun_steps(
         4, 1, relu_force, friction_w_neighbour, "com", (64, 16, 16),
         2, 2, Xg, Float3.zeros(512), jnp.int32(n), jnp.float32(0.05),
-        jnp.float32(1.0), jnp.int32(0), None, False, None, None,
-        jnp.float32(1.0), 0, 16, 0, False, 0.0, 2)
+        jnp.float32(1.0), jnp.int32(0), None, None, None,
+        jnp.float32(1.0), 0, False, 2)
     _assert_clean(aux)
     for f in ("x", "y", "z"):
         got = np.asarray(getattr(X, f))[:n]
         ref = np.asarray(getattr(htg, f))[:n]
         assert np.allclose(got, ref, atol=2e-5), \
-            f"x_split C=2 (XLA) differs in {f}"
+            f"x_split C=2 differs in {f}"
 
 
 def test_xsplit_rebin_per_pass_matches_tile():
@@ -156,9 +103,9 @@ def test_xsplit_rebin_per_pass_matches_tile():
     ht = _tile_oracle(pos, n, 4, 0.05)
     X, ov, aux = lattice_heun_steps(
         4, 1, relu_force, friction_w_neighbour, "com", (32, 8, 8),
-        4, 2, X0, ov0, jnp.int32(n), jnp.float32(0.05),
-        jnp.float32(1.0), jnp.int32(0), None, True, None, None, None,
-        256, 8, 2048, True, 0.0, 2)  # C=4 + extras absorb occ spikes
+        8, 2, X0, ov0, jnp.int32(n), jnp.float32(0.05),
+        jnp.float32(1.0), jnp.int32(0), None, None, None, None,
+        2048, True, 2)
     _assert_clean(aux)
     for f in ("x", "y", "z"):
         got = np.asarray(getattr(X, f))[:n]

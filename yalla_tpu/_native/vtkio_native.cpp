@@ -1,7 +1,7 @@
 // Fast legacy-VTK ASCII serialization/parsing.
 //
 // Native equivalent of the reference's C++ host I/O layer
-// (/root/reference/include/vtk.cuh): at 500k cells x 500 frames the ASCII
+// (include/vtk.cuh): at 500k cells x 500 frames the ASCII
 // formatting is a genuine host-side hot path (the reference overlaps it
 // with compute on a std::thread, examples/branching.cu:263-281; here it
 // overlaps JAX's async dispatch).  Uses C++17 std::to_chars / from_chars --
@@ -144,7 +144,7 @@ extern "C" {
 // Mesh point-in-closed-mesh test (geometry service, not I/O).
 //
 // Native equivalent of the reference's Mesh::test_exclusion ray-triangle
-// parity walk (/root/reference/include/mesh.cuh:379-419): for each point,
+// parity walk (include/mesh.cuh:379-419): for each point,
 // count intersections of the fixed ray direction with the facet set; an
 // even count means outside.  The vectorized numpy form materializes a
 // [points, facets] block (O(P*F) memory); this is O(1) memory and

@@ -1,7 +1,7 @@
 """Point types: a vector space over named float fields.
 
-TPU-native rebuild of the reference's ``MAKE_PT`` macro
-(``/root/reference/include/dtypes.cuh:58-147``): a point type ``Pt`` carries
+Rebuild of the reference's ``MAKE_PT`` macro
+(``include/dtypes.cuh:58-147``): a point type ``Pt`` carries
 ``x, y, z`` plus arbitrary extra float fields (polarity angles, morphogen
 concentrations, ...), all of which are integrated component-wise.
 
@@ -89,7 +89,7 @@ class _PtMixin:
 def make_pt(name: str, *extra_fields: str) -> type:
     """Create a point type with fields ``x, y, z, *extra_fields``.
 
-    The TPU-native analogue of ``MAKE_PT(Pt, ...)``
+    The JAX analogue of ``MAKE_PT(Pt, ...)``
     (ref dtypes.cuh:58-75).  Returns a NamedTuple subclass that is a JAX
     pytree and supports ``+ - * /`` component-wise.  Types are memoized so
     repeated calls with the same signature return the identical class

@@ -8,7 +8,7 @@ random ``mean_distance / 4`` offset, halves conserved fields, and copies
 ``d_old_v``.  Newborn cells are protected from dividing by the guard
 ``i >= n * (1 - rate)``.
 
-TPU-native translation: capacity is static; a boolean *division mask* is
+Translation: capacity is static; a boolean *division mask* is
 turned into daughter slots by an exclusive prefix sum (replacing the atomic
 counter -- birth order differs from the reference, which is fine because the
 reference itself is nondeterministic through atomics and time-seeded RNG).
@@ -16,12 +16,10 @@ reference itself is nondeterministic through atomics and time-seeded RNG).
 Daughters always land in the CONTIGUOUS slot range ``[n, n + k)``, so the
 writes are windowed: a ``birth_cap``-wide window of each array is updated
 with ``lax.dynamic_update_slice`` after gathering the (few) dividing
-parents through a ``searchsorted`` on the prefix sum.  Full-width scatters
-(``.at[tgt].set`` with mostly-dropped targets) cost ~5 ms per channel at
-500k cells on TPU (scatter cost scales with the update count, not the hit
-count); the windowed form is O(birth_cap) per channel and turned the
-flagship's per-substep division pass from the dominant fixed cost into
-noise.  Parent-side field updates stay elementwise (``where(ok, ...)``).
+parents through a ``searchsorted`` on the prefix sum.  A full-width
+scatter (``.at[tgt].set`` with mostly-dropped targets) costs in proportion
+to its update count, not its hit count; the windowed form is O(birth_cap)
+per channel, so the flagship's per-substep division pass stays small.  Parent-side field updates stay elementwise (``where(ok, ...)``).
 
 Lineage tracing (``branching.cu:46-55, 154-169``) records a tree node per
 division into preallocated arrays with its own prefix-sum-allocated counter,

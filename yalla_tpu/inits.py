@@ -1,4 +1,4 @@
-"""Initial states (rebuild of ``/root/reference/include/inits.cuh``).
+"""Initial states (rebuild of ``include/inits.cuh``).
 
 Host-side numpy generators fill the Solution's host mirror and push to
 device; the ``relaxed_*`` variants then run a device-fused relaxation under

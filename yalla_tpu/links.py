@@ -1,6 +1,6 @@
 """Links between points (protrusions) and solid walls.
 
-TPU-native rebuild of ``/root/reference/include/links.cuh``.  A link table
+Rebuild of ``include/links.cuh``.  A link table
 is a fixed-capacity array of (a, b) index pairs with its own active count;
 ``a == b`` marks an inactive link (ref links.cuh:121-122).  Forces are
 applied to both endpoints with scatter-add (``.at[].add``) -- the race-free

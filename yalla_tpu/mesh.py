@@ -1,15 +1,14 @@
 """Closed surface meshes for image-based models + Chamfer shape comparison.
 
-Rebuild of ``/root/reference/include/mesh.cuh``: read VTK POLYDATA triangle
+Rebuild of ``include/mesh.cuh``: read VTK POLYDATA triangle
 meshes, transform them (translate / rotate / rescale / grow_normally),
 test point inclusion by ray-triangle parity, and quantify shape agreement
 with the symmetric Chamfer distance (``shape_comparison``, the library's
 fitness metric, ref mesh.cuh:58-88).
 
-TPU-native detail: the reference's tiled min-distance kernel
-(ref mesh.cuh:27-56) becomes a jitted Gram-matrix formulation
-``d^2 = |a|^2 + |b|^2 - 2 a.b`` so the O(n1*n2) distance matrix runs on
-the MXU; host-side geometry stays vectorized numpy.
+The reference's tiled min-distance kernel (ref mesh.cuh:27-56) becomes a
+jitted, blocked elementwise ``|a - b|^2`` (exact in f32); host-side
+geometry stays vectorized numpy.
 """
 from __future__ import annotations
 

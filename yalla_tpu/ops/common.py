@@ -2,7 +2,7 @@
 
 The user-facing pairwise contract mirrors the reference's
 ``Pairwise_interaction`` / ``Pairwise_friction`` functors
-(``/root/reference/include/solvers.cuh:15-41``):
+(``include/solvers.cuh:15-41``):
 
     pw_int(Xi, r, dist, i, j) -> dF            (a Pt)
                                | (dF, aux)      (aux: dict name -> per-pair array)
@@ -11,7 +11,7 @@ with ``r = Xi - Xj``.  Unlike the reference (one CUDA thread per point), the
 function here is an *elementwise jnp function over blocks of pairs*: every
 argument is an array (or a Pt of arrays) of one broadcastable pair-block
 shape.  The same user code therefore runs unchanged in the O(N^2) engine,
-the spatial-hash grid engine, the Gabriel engine, and Pallas kernels.
+the spatial-hash grid engine, the Gabriel engine, and the sweep kernel.
 
 The optional ``aux`` channel replaces the reference's global-memory
 side-channels (e.g. neighbour counters incremented inside force functors,
@@ -20,6 +20,8 @@ over neighbours into named per-cell accumulators -- race-free by
 construction, no atomics.
 """
 from __future__ import annotations
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,9 @@ __all__ = [
     "cube_coord",
     "cube_ids",
     "grid_dims",
+    "grid_for",
+    "central_force",
+    "CENTRAL_SENTINEL",
     "out_of_grid_mask",
     "split_force_output",
     "ERR_PREFIX",
@@ -58,13 +63,79 @@ def friction_on_background(Xi, r, dist, i, j):
     return jnp.zeros_like(dist)
 
 
-# central-form declarations for the MXU all-pairs path
-# (ops/central_mxu.py): f(dist, Si, Sj) with invalid pairs -- padding and
-# the i == j diagonal -- excluded by distance poisoning
-friction_w_neighbour.central_coef = \
-    lambda dist, Si, Sj: (dist < 1.0).astype(jnp.float32)
-friction_on_background.central_coef = \
-    lambda dist, Si, Sj: jnp.zeros_like(dist)
+# Distance a central force's coefficient sees on the i == j diagonal:
+# past every physical cutoff, small enough that polynomial coefficients
+# of dist stay finite in f32.
+CENTRAL_SENTINEL = 1e4
+
+
+class _CentralForce:
+    """Callable satisfying the generic pairwise contract; see
+    ``central_force``."""
+
+    def __init__(self, Pt, coef, fields, bilinear, aux, diag, name):
+        self.Pt = Pt
+        self.coef = coef
+        self.fields = tuple(fields)
+        self.bilinear = dict(bilinear or {})
+        self.aux = dict(aux or {})
+        self.diag = diag
+        self.__name__ = name
+
+    # -- generic elementwise evaluation (any engine) ------------------------
+    def _channels(self, Xi, r):
+        Si = {f: getattr(Xi, f) for f in self.fields}
+        Sj = {f: getattr(Xi, f) - getattr(r, f) for f in self.fields}
+        Xj = Xi - r
+        ch = {}
+        for name, (fa, fb) in self.bilinear.items():
+            a, b = fa(Xi), fb(Xj)
+            ch[name] = sum(ai * bi for ai, bi in zip(a, b))
+        return Si, Sj, ch
+
+    def __call__(self, Xi, r, dist, i, j):
+        Si, Sj, ch = self._channels(Xi, r)
+        off = (i != j)
+        # poisoned dist on the diagonal: the coefficient's own cutoff
+        # gating excludes the self pair
+        d = jnp.where(off, dist, CENTRAL_SENTINEL)
+        w = self.coef(d, Si, Sj, **ch)
+        zero = jnp.zeros_like(dist + w)
+        vals = {"x": w * r.x, "y": w * r.y, "z": w * r.z}
+        if self.diag is not None:
+            dPt = self.diag(Xi)
+            on = 1.0 - off.astype(w.dtype)
+            for f in self.Pt._fields:
+                dv = getattr(dPt, f)
+                if f in vals:
+                    vals[f] = vals[f] + on * dv
+                elif dv is not None:
+                    vals[f] = on * dv
+        dF = self.Pt(**{f: vals.get(f, zero) for f in self.Pt._fields})
+        if not self.aux:
+            return dF
+        return dF, {k: g(d, Si, Sj, **ch) for k, g in self.aux.items()}
+
+
+def central_force(Pt, coef, *, fields=(), bilinear=None, aux=None,
+                  diag=None, name="central_force"):
+    """Declare a central pairwise force.
+
+    ``coef(dist, Si, Sj, **bilinear_channels) -> w`` is the radial
+    coefficient (``dF_xyz = w * r``); ``Si``/``Sj`` are dicts of the
+    named per-cell scalar ``fields`` for each side.  ``bilinear`` maps a
+    channel name to ``(a, b)`` with ``a(X) -> tuple`` / ``b(X) -> tuple``
+    of per-cell columns; the channel delivered to ``coef`` is
+    ``sum_k a_k(Xi) * b_k(Xj)``.  ``aux``
+    maps names to per-pair functions with coef's signature, summed over
+    neighbours (the counter side channel, SURVEY P3).  ``diag(Xi) -> Pt``
+    supplies the i == j reaction term (models put reaction/self dynamics
+    there, ref examples/turing.cu:38-46).
+
+    The result follows the standard ``pw_int(Xi, r, dist, i, j)``
+    contract on every engine.
+    """
+    return _CentralForce(Pt, coef, fields, bilinear, aux, diag, name)
 
 
 def mask_tree(tree, mask):
@@ -72,18 +143,20 @@ def mask_tree(tree, mask):
 
 
 def grid_dims(grid_size):
-    """``(gx, gy, gz)`` from an int (cubic grid) or a 3-tuple.
-
-    Only the x extent is coupled to the kernels' 128-lane row constraint
-    (rows are ``gx * C`` lanes); y and z are free at multiples of 8, so
-    anisotropic grids avoid paying the lane rule in all three axes
-    (a ~25% lane-work tax for a ball-shaped tissue at e.g. C = 12,
-    where the rule forces gx from the needed 52 up to 64)."""
+    """``(gx, gy, gz)`` from an int (cubic grid) or a 3-tuple."""
     if isinstance(grid_size, (tuple, list)):
         gx, gy, gz = (int(g) for g in grid_size)
         return gx, gy, gz
     g = int(grid_size)
     return g, g, g
+
+
+def grid_for(pos_max, cube_size):
+    """Smallest even number of cubes per axis (at least 16) covering
+    ``|coord| <= pos_max`` plus a 0.75 margin; cubes are centred on the
+    origin (``cube_coord``)."""
+    need = math.ceil(2.0 * (pos_max + 0.75) / cube_size)
+    return max(-(-need // 2) * 2, 16)
 
 
 def cube_coord(v, cube_size, grid_size):

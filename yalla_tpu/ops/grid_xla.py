@@ -1,7 +1,7 @@
 """Spatial-hash grid engine (XLA path) and Gabriel-graph refinement.
 
-TPU-native rebuild of the reference's sort-based uniform grid
-(``/root/reference/include/solvers.cuh:345-502``) and Gabriel computer
+Rebuild of the reference's sort-based uniform grid
+(``include/solvers.cuh:345-502``) and Gabriel computer
 (``solvers.cuh:505-644``).  Key design translations:
 
 * ``thrust::sort_by_key(cube_id, point_id)``  ->  ``lax.sort`` with payload.
@@ -273,7 +273,7 @@ def _gabriel_gather(pw_int, pw_friction, X, old_v, n, cube_size, *,
                     grid_size, row_cap, gabriel_coefficient,
                     i_block, i_offset, i_size, max_candidates):
     """Per-point row-gather formulation (original; see gabriel_windowed
-    for the shared-window TPU path)."""
+    for the shared-window formulation)."""
     n_pad = X.x.shape[0]
     if i_size is None:
         i_size = n_pad
@@ -296,12 +296,11 @@ def gabriel_windowed(pw_int, pw_friction, X, old_v, n, cube_size, *,
                      grid_size=50, gabriel_coefficient=0.8,
                      i_block=64, window_cap=256, max_candidates=32,
                      row_cap=32, salvage_cap=256, subgroup=None):
-    """Gabriel pairs via SORTED-ORDER shared windows: the TPU-native
-    rewrite of :func:`gabriel_pairwise`.
+    """Gabriel pairs via SORTED-ORDER shared windows: a rewrite of
+    :func:`gabriel_pairwise` with fewer random accesses.
 
     The gather formulation moves ~(9 * row_cap * 3 + NC * K) randomly
-    addressed elements per point and is bandwidth-dead at XLA:TPU's ~1e8
-    gathered elements/s.  Here consecutive SORTED points share their
+    addressed elements per point.  Here consecutive SORTED points share their
     neighbourhood: for each block of ``i_block`` sorted points, the nine
     (dz, dy) candidate rows are fetched as CONTIGUOUS ``dynamic_slice``
     windows of the cube-sorted channel matrix (one slice per row, all
@@ -348,7 +347,7 @@ def gabriel_windowed(pw_int, pw_friction, X, old_v, n, cube_size, *,
         g -= 1
     G = B // g
     Wr = min(window_cap, n_pad)
-    # effective window: whole 64-lane segments covering [w0, w0 + Wr)
+    # effective window: whole 64-element segments covering [w0, w0 + Wr)
     # at any alignment (one extra segment absorbs the round-down)
     assert n_pad % 64 == 0, "gabriel_windowed needs n_pad % 64 == 0"
     We = min((-(-Wr // 64) + 1) * 64, n_pad)
@@ -406,11 +405,10 @@ def gabriel_windowed(pw_int, pw_friction, X, old_v, n, cube_size, *,
         re_med = jnp.take_along_axis(jnp.sort(re_f, axis=1), mid_r,
                                      axis=1)[:, 0]
         w0 = jnp.clip((rs_med + re_med - Wr) // 2, 0, n_pad - Wr)  # [G, 9]
-        # ALIGNED fetch: round the window down to a 64-lane segment
-        # boundary and take whole segments -- XLA:TPU gathers aligned
-        # rows ~12x faster than arbitrary-offset dynamic slices
-        # (benchmarks/diag_fetch.py: 9 vs 108 ms for 57.6k windows), and
-        # the wider effective window only reduces misfits
+        # ALIGNED fetch: round the window down to a 64-element segment
+        # boundary and take whole segments (one row gather instead of an
+        # arbitrary-offset dynamic slice per window); the wider effective
+        # window only reduces misfits
         w0a = jnp.clip((w0 // 64) * 64, 0, max(n_pad - We, 0))  # [G, 9]
         # a point fits iff every non-empty row range sits inside its
         # subgroup's (effective) window

@@ -1,21 +1,18 @@
-"""Dense cube-lattice engine: the TPU performance path for large N.
+"""Dense cube-lattice engine: the plain-XLA binned path for large N.
 
 Same physics as the spatial-hash grid engine (rebuilding ``Grid_computer``
-semantics from ``/root/reference/include/solvers.cuh:345-502``), laid out
-for TPU memory behaviour.  XLA:TPU random gathers/scatters run at ~1e8
-elements/s, so ANY per-pair gather formulation is bandwidth-dead at 500k
-cells (~0.5e9 gathered elements per pass).  Here the population lives in a
-dense fixed-capacity cell list:
+semantics from the reference's ``solvers.cuh:345-502``), laid out as
+dense arrays.  The population lives in a fixed-capacity cell list:
 
     T[field][gs, gs, gs, C]   (C = per-cube capacity; empty slots masked)
 
 and the 27-neighbour-cube sweep becomes a *27-point shifted-slice stencil*
--- contiguous reads only, dense [.., C, C] pair blocks on the VPU, zero
-gathers in the force pass.  Translation between stable-id arrays and the
-lattice happens once per rebuild; ``lattice_heun_steps`` keeps the state
-lattice-resident for ``rebuild_every`` steps (the reference's potentials
-vanish at the cutoff, so a brief stale binning has negligible force error;
-use rebuild_every=1 for exactness).
+-- contiguous reads only, dense [.., C, C] pair blocks, no gathers in the
+force pass.  Translation between stable-id arrays and the lattice happens
+once per rebuild; ``lattice_heun_steps`` keeps the state lattice-resident
+for ``rebuild_every`` steps (the reference's potentials vanish at the
+cutoff, so a brief stale binning has negligible force error; use
+rebuild_every=1 for exactness).
 """
 from __future__ import annotations
 
@@ -26,36 +23,19 @@ import jax
 import jax.numpy as jnp
 
 from ..dtypes import Float3
-from .common import evaluate_pairs, mask_tree
+from .common import evaluate_pairs, grid_for, mask_tree
 
 __all__ = ["LatticeLayout", "lattice_build", "lattice_unbuild",
            "lattice_pairwise_resident", "lattice_heun_steps",
-           "lattice_overflow_count", "lattice_grid_for", "pick_lattice_dims",
+           "lattice_overflow_count", "pick_lattice_dims",
            "slot_to_stable"]
 
 
-def lattice_grid_for(pos_max, cube_size, capacity=8):
-    """Smallest grid covering ``|coord| <= pos_max`` (plus margin) whose
-    row width ``gs * capacity`` is a multiple of 128 lanes (the Pallas
-    kernel's constraint; any gs works for the XLA path)."""
-    import numpy as np
-    g0 = int(128 // np.gcd(capacity, 128))
-    need = 2.0 * (pos_max + 0.75) / cube_size
-    return int(max(-(-int(np.ceil(need)) // g0) * g0, 16))
-
-
 def pick_lattice_dims(pos_max, cube_size, max_occ):
-    """(grid_size, capacity) minimizing kernel lane-work
-    ``gs^3 * C * (4C - 1)`` subject to ``C >= max_occ + 1`` headroom and
-    the 128-lane row constraint.  The in-loop overflow flags catch any
-    occupancy growth past C during a run."""
-    best = None
-    for C in range(max(4, max_occ + 1), max(16, max_occ + 1) + 9):
-        gs = lattice_grid_for(pos_max, cube_size, C)
-        cost = gs ** 3 * C * (4 * C - 1)
-        if best is None or cost < best[0]:
-            best = (cost, gs, C)
-    return best[1], best[2]
+    """``(grid_size, capacity)``: the covering grid, and one slot of
+    headroom over ``max_occ`` (at least 4).  The in-loop overflow flags
+    catch any occupancy growth past C during a run."""
+    return grid_for(pos_max, cube_size), max(4, max_occ + 1)
 
 _OFFSETS = [(dz, dy, dx)
             for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
@@ -70,15 +50,6 @@ class LatticeLayout(NamedTuple):
     n_oob: jnp.ndarray      # int32: points clipped into edge cubes (out of
     #                         grid -- mis-binned; ref D_ASSERTs instead,
     #                         solvers.cuh:361-364)
-    # ---- overflow extras (optional; extras_cap > 0 in lattice_build) ----
-    # Cells past a cube's capacity go to a small side list instead of being
-    # dropped, so the dense lattice can run at a capacity near the TYPICAL
-    # occupancy instead of the worst cube's (kernel cost ~ C^2): the Pallas
-    # kernel folds extras into its pair pass via per-block sidecar tables.
-    E: object = None        # Pt of f32[extras_cap]
-    Eov: object = None      # Float3 of f32[extras_cap]
-    epid: jnp.ndarray | None = None  # int32[extras_cap]; n_pad = empty
-    n_extras: jnp.ndarray | None = None
 
 
 from .common import cube_ids as _cube_ids
@@ -86,32 +57,13 @@ from .common import grid_dims as _grid_dims
 from .common import out_of_grid_mask as _oob_mask
 
 
-def lattice_build(X, old_v, n, cube_size, grid_size, capacity,
-                  extras_cap=0, pallas_pour=False, route_mask=None,
-                  x_split=1):
+def lattice_build(X, old_v, n, cube_size, grid_size, capacity, x_split=1):
     """Sort by cube id and pour points into the dense lattice.
 
-    Random-access-minimal construction (XLA:TPU gathers/scatters run at
-    ~1e8 elem/s, so they -- not the sort -- dominate a naive build):
-    every channel rides the cube-id sort as a *payload* (the TPU sort
-    network moves payloads vectorized), and the sorted values land in
-    their slots with one n_pad-sized unique-index scatter per channel --
-    ~n_pad random accesses per channel instead of ~n_slots + n_pad
-    (measured 3.5x faster at 500k cells, C = 8).
-
-    ``extras_cap > 0`` diverts cells past a cube's capacity into the
-    ``E``/``Eov``/``epid`` side list (in sorted order) instead of
-    dropping them; only cells overflowing the side list too count as
-    ``n_dropped``.
-
-    ``route_mask`` (bool[n_pad], requires ``extras_cap > 0``) FORCES
-    cells into the extras list regardless of cube occupancy.  Extras'
-    pairs are re-tabled from their instantaneous positions every pass
-    (lattice_pallas._extras_tables), so a cell in extras is exact at
-    any speed -- routing the few fast movers of a settled tissue there
-    lets the resident (``rebuild_every > 1``) cadence pass the
-    staleness certificate honestly: the lattice's own extrema then
-    bound only the slow bulk."""
+    Every channel rides the cube-id sort as a *payload*, and the sorted
+    values land in their slots with one n_pad-sized unique-index scatter
+    per channel.  Cells past a cube's ``capacity`` are dropped and
+    counted in ``n_dropped``."""
     n_pad = X.x.shape[0]
     gx, gy, gz = _grid_dims(grid_size)
     C = capacity
@@ -119,7 +71,6 @@ def lattice_build(X, old_v, n, cube_size, grid_size, capacity,
     n_slots = n_cubes * C
     cid = _cube_ids(X, n, cube_size, grid_size, x_split)
     iota = jnp.arange(n_pad, dtype=jnp.int32)
-    active = iota < n
 
     n_oob = jnp.sum(_oob_mask(X, n, cube_size, grid_size, x_split),
                     dtype=jnp.int32)
@@ -127,24 +78,10 @@ def lattice_build(X, old_v, n, cube_size, grid_size, capacity,
     leaves_X, tree_X = jax.tree.flatten(X)
     leaves_ov, tree_ov = jax.tree.flatten(old_v)
     nx = len(leaves_X)
-    if route_mask is not None:
-        assert extras_cap, "route_mask requires overflow extras"
-        # routed cells sort to the END of their cube's segment (third
-        # key) so unrouted cells keep the low ranks; they then ride the
-        # ordinary overflow path below via the ``over`` predicate
-        routed_key = route_mask.astype(jnp.int32)
-        sorted_all = jax.lax.sort(
-            (cid, routed_key, iota, *leaves_X, *leaves_ov), num_keys=3)
-        sorted_cid, sorted_routed, order = (sorted_all[0],
-                                            sorted_all[1] > 0,
-                                            sorted_all[2])
-        sorted_vals = sorted_all[3:]
-    else:
-        sorted_routed = None
-        sorted_all = jax.lax.sort((cid, iota, *leaves_X, *leaves_ov),
-                                  num_keys=2)
-        sorted_cid, order = sorted_all[0], sorted_all[1]
-        sorted_vals = sorted_all[2:]
+    sorted_all = jax.lax.sort((cid, iota, *leaves_X, *leaves_ov),
+                              num_keys=2)
+    sorted_cid, order = sorted_all[0], sorted_all[1]
+    sorted_vals = sorted_all[2:]
 
     # rank within the cube, from segment starts of the sorted ids
     first = jnp.concatenate([jnp.ones(1, bool),
@@ -152,102 +89,40 @@ def lattice_build(X, old_v, n, cube_size, grid_size, capacity,
     seg_start = jax.lax.cummax(jnp.where(first, iota, 0))
     rank = iota - seg_start
     ok = (rank < C) & (sorted_cid < n_cubes)
-    if sorted_routed is not None:
-        ok = ok & ~sorted_routed
     slot_sorted = jnp.where(ok, sorted_cid * C + rank, n_slots)  # drop
 
     def pour(sorted_a, fill=0.0):
-        # NOTE: indices_are_sorted would be ~25% faster but is UNSAFE here:
+        # NOTE: indices_are_sorted would be faster but is UNSAFE here:
         # overflow entries carry an interleaved drop sentinel, so the index
         # array is not monotone whenever any cube exceeds capacity
         return jnp.full(n_slots, fill, sorted_a.dtype) \
             .at[slot_sorted].set(sorted_a, mode="drop",
                                  unique_indices=True)
 
-    n_unrouted = jnp.int32(0)
-    from .lattice_pour import pour_supported
-    if pallas_pour and pour_supported(n_pad, grid_size, C):
-        # butterfly pour kernel: the K per-channel scatters (~5 ms each at
-        # 500k) become one conflict-free roll/select routing pass on the
-        # VPU (ops/lattice_pour.py); exact-equality vs the scatter path is
-        # pinned by tests/test_pour.py
-        from .lattice_pour import DST_SENTINEL, pour_pallas
-        dst = jnp.where(ok, (sorted_cid * C + rank).astype(jnp.float32),
-                        DST_SENTINEL)
-        S = jnp.stack(list(sorted_vals)
-                      + [order.astype(jnp.float32), dst])
-        row_id = jnp.minimum(sorted_cid // gx, gy * gz)
-        cnt = jnp.zeros(gy * gz + 1, jnp.int32).at[row_id].add(1)
-        row_starts = (jnp.cumsum(cnt) - cnt).astype(jnp.int32)
-        outp, live, n_unrouted = pour_pallas(S, row_starts, n_pad,
-                                             grid_size, C)
-        T = jax.tree.unflatten(tree_X, [outp[k] for k in range(nx)])
-        Tov = jax.tree.unflatten(tree_ov,
-                                 [outp[nx + c] for c in range(3)])
-        pid = jnp.where(live > 0.5,
-                        outp[nx + 3].astype(jnp.int32), n_pad)
-    else:
-        T = jax.tree.unflatten(tree_X, [pour(v) for v in sorted_vals[:nx]])
-        Tov = jax.tree.unflatten(tree_ov,
-                                 [pour(v) for v in sorted_vals[nx:]])
-        pid = pour(order, n_pad)
+    T = jax.tree.unflatten(tree_X, [pour(v) for v in sorted_vals[:nx]])
+    Tov = jax.tree.unflatten(tree_ov, [pour(v) for v in sorted_vals[nx:]])
+    pid = pour(order, n_pad)
     slot_of = jnp.full(n_pad, n_slots, jnp.int32) \
         .at[order].set(slot_sorted, mode="drop", unique_indices=True)
-
-    over = (rank >= C) & (sorted_cid < n_cubes)
-    if sorted_routed is not None:
-        over = over | (sorted_routed & (sorted_cid < n_cubes))
-    if not extras_cap:
-        # pour-kernel unrouted cells are missing from the lattice exactly
-        # like capacity drops; surface them through the same flag
-        n_dropped = jnp.sum(over) + n_unrouted
-        return LatticeLayout(T=T, Tov=Tov, pid=pid, slot_of=slot_of,
-                             n_dropped=n_dropped, n_oob=n_oob)
-
-    e_idx = jnp.cumsum(over) - 1          # position among overflow cells
-    e_ok = over & (e_idx < extras_cap)
-    e_slot = jnp.where(e_ok, e_idx, extras_cap).astype(jnp.int32)
-
-    # compact-then-gather: ONE n_pad-sized scatter records each extra's
-    # sorted position, then every channel is a tiny [extras_cap] gather
-    # (the per-channel n_pad scatter variant costs ~5 ms/channel at 500k
-    # -- scatter cost scales with the update count, not the table size)
-    e_src = jnp.full(extras_cap, n_pad, jnp.int32) \
-        .at[e_slot].set(iota, mode="drop", unique_indices=True)
-    e_live = e_src < n_pad
-    pick = jnp.minimum(e_src, n_pad - 1)
-
-    def pour_e(sorted_a, fill=0.0):
-        return jnp.where(e_live, sorted_a[pick],
-                         jnp.asarray(fill, sorted_a.dtype))
-
-    E = jax.tree.unflatten(tree_X, [pour_e(v) for v in sorted_vals[:nx]])
-    Eov = jax.tree.unflatten(tree_ov, [pour_e(v) for v in sorted_vals[nx:]])
-    epid = pour_e(order, n_pad)
-    n_dropped = jnp.sum(over & ~e_ok) + n_unrouted
+    n_dropped = jnp.sum((rank >= C) & (sorted_cid < n_cubes))
     return LatticeLayout(T=T, Tov=Tov, pid=pid, slot_of=slot_of,
-                         n_dropped=n_dropped, n_oob=n_oob,
-                         E=E, Eov=Eov, epid=epid,
-                         n_extras=jnp.sum(e_ok, dtype=jnp.int32))
+                         n_dropped=n_dropped, n_oob=n_oob)
 
 
 def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
-                  m_cap, extras_cap=0, carry=None, carry_E=None,
-                  x_split=1):
+                  m_cap, carry=None, x_split=1):
     """Re-derive the binning from the CURRENT slot-space positions.
 
     Produces the same cube MEMBERSHIP as ``lattice_unbuild`` followed by
     a fresh ``lattice_build`` -- without the global n_pad sort or the
     stable-order round trip.  Between rebuilds only a few percent of
-    cells cross a cube face, so: stayers keep their slots; movers (plus
-    every live overflow extra, which gets a chance to rejoin the dense
-    lattice) are compacted into a side list of capacity ``m_cap``, each
-    assigned a free lane of its target cube (freed lanes are reused in
-    lane order), and scattered in.  Movers whose target cube is full
-    spill to the extras list, and past that are dropped -- exactly
-    ``lattice_build``'s capacity semantics.  Slot placement WITHIN a
-    cube differs from a fresh build (pair sums are reduction-order
-    equivalent, f32 roundoff aside).
+    cells cross a cube face, so: stayers keep their slots; movers are
+    compacted into a side list of capacity ``m_cap``, each assigned a
+    free lane of its target cube (freed lanes are reused in lane order),
+    and scattered in.  Movers whose target cube is full are dropped --
+    exactly ``lattice_build``'s capacity semantics.  Slot placement
+    WITHIN a cube differs from a fresh build (pair sums are
+    reduction-order equivalent, f32 roundoff aside).
 
     Returns ``(layout, n_unrebinned)``: nonzero means the mover list
     overflowed ``m_cap`` and that many points kept a STALE cube
@@ -255,15 +130,13 @@ def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
     (their forces would silently differ from a fresh build's).
 
     ``carry`` (optional): a pytree of ``[n_slots]`` arrays transported
-    through the same slot permutation as the state channels (with
-    ``carry_E`` its ``[extras_cap]`` extras-list counterpart when extras
-    are enabled).  This is what makes the *per-pass* rebin cadence of
-    ``lattice_heun_steps`` possible: the Heun corrector needs the
-    predictor derivative ``d1`` in the NEW binning's slot order
-    (``X_new = X1 + dt/2 * (d2 - d1)``), so ``d1`` rides the rebin
-    instead of a stable-order round trip.  Returns
-    ``(layout, n_unrebinned, carry2[, carry_E2])`` in that case; values
-    at vacated-but-unfilled slots are stale and must stay masked by
+    through the same slot permutation as the state channels.  This is
+    what makes the *per-pass* rebin cadence of ``lattice_heun_steps``
+    possible: the Heun corrector needs the predictor derivative ``d1`` in
+    the NEW binning's slot order (``X_new = X1 + dt/2 * (d2 - d1)``), so
+    ``d1`` rides the rebin instead of a stable-order round trip.  Returns
+    ``(layout, n_unrebinned, carry2)`` in that case; values at
+    vacated-but-unfilled slots are stale and must stay masked by
     occupancy, exactly like the state channels.
     """
     from .common import cube_coord
@@ -297,12 +170,7 @@ def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
     stay = occ & ~mover
     n_mov = jnp.sum(mover, dtype=jnp.int32)
     n_unrebinned = jnp.maximum(n_mov - m_cap, 0)
-
-    has_e = extras_cap > 0 and layout.epid is not None
-    live_e = (layout.epid < n_pad) if has_e else None
     n_oob = jnp.sum(oob_of(T, occ), dtype=jnp.int32)
-    if has_e:
-        n_oob = n_oob + jnp.sum(oob_of(layout.E, live_e), dtype=jnp.int32)
 
     # free lanes per cube after removing movers, in lane order
     lane = jnp.arange(C, dtype=jnp.int32)[None, :]
@@ -310,9 +178,8 @@ def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
     free_lane = jnp.sort(jnp.where(free2, lane, lane + C), axis=1)
     free_cnt = jnp.sum(free2, axis=1)
 
-    # compact movers (lattice segment) + all live extras into one list
-    E_cap = layout.epid.shape[0] if has_e else 0
-    L = m_cap + E_cap
+    # compact the movers into one list
+    L = m_cap
     mov_rank = jnp.cumsum(mover) - 1
     dst_list = jnp.where(mover & (mov_rank < m_cap),
                          mov_rank.astype(jnp.int32), m_cap)
@@ -330,25 +197,11 @@ def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
     else:
         leaves_c, tree_c = [], None
     lat_chans = leaves_T + leaves_ov + leaves_c
-    if has_e:
-        leaves_cE = jax.tree.leaves(carry_E) if carry is not None else []
-        assert len(leaves_cE) == len(leaves_c), \
-            "carry_E must mirror carry when extras are enabled"
-        e_chans = (jax.tree.leaves(layout.E) + jax.tree.leaves(layout.Eov)
-                   + leaves_cE)
-        cat = lambda aT, aE: jnp.concatenate([aT[pick], aE])
-        chans = [cat(a, b) for a, b in zip(lat_chans, e_chans)]
-        list_pid = jnp.concatenate([
-            jnp.where(lat_live, layout.pid[pick], n_pad), layout.epid])
-        tq = jnp.concatenate([
-            jnp.where(lat_live, cid_new[pick], n_cubes),
-            cid_of(layout.E, live_e)])
-    else:
-        chans = [a[pick] for a in lat_chans]
-        list_pid = jnp.where(lat_live, layout.pid[pick], n_pad)
-        tq = jnp.where(lat_live, cid_new[pick], n_cubes)
+    chans = [a[pick] for a in lat_chans]
+    list_pid = jnp.where(lat_live, layout.pid[pick], n_pad)
+    tq = jnp.where(lat_live, cid_new[pick], n_cubes)
 
-    # rank within target cube -> free lane (or extras spill, or drop)
+    # rank within target cube -> free lane (or drop)
     iota_L = jnp.arange(L, dtype=jnp.int32)
     s_tq, s_idx = jax.lax.sort((tq, iota_L), num_keys=1)
     first = jnp.concatenate([jnp.ones(1, bool), s_tq[1:] != s_tq[:-1]])
@@ -357,11 +210,7 @@ def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
     fits = (s_tq < n_cubes) & (r < free_cnt[qc])
     dst = jnp.where(fits, qc * C + free_lane[qc, jnp.minimum(r, C - 1)],
                     n_slots)
-    over = (s_tq < n_cubes) & ~fits
-    e_rank = jnp.cumsum(over) - 1
-    e_ok = over & (e_rank < extras_cap)
-    e_dst = jnp.where(e_ok, e_rank.astype(jnp.int32), max(extras_cap, 1))
-    n_dropped = jnp.sum(over & ~e_ok, dtype=jnp.int32)
+    n_dropped = jnp.sum((s_tq < n_cubes) & ~fits, dtype=jnp.int32)
 
     pid_s = list_pid[s_idx]
     chans_s = [a[s_idx] for a in chans]
@@ -377,43 +226,17 @@ def lattice_rebin(layout: LatticeLayout, cube_size, grid_size, capacity,
         jnp.where(fits, dst, n_slots), mode="drop")
     T2 = jax.tree.unflatten(tree_T, outs[:nx])
     Tov2 = jax.tree.unflatten(tree_ov, outs[nx:nx + 3])
-    carry2 = jax.tree.unflatten(tree_c, outs[nx + 3:]) \
-        if carry is not None else None
     new = layout._replace(T=T2, Tov=Tov2, pid=pid2, slot_of=slot_of2,
                           n_dropped=n_dropped, n_oob=n_oob)
-    if has_e:
-        epad = max(extras_cap, 1) + 1
-
-        def pour_e(v):
-            return jnp.zeros(epad, v.dtype).at[e_dst].set(
-                jnp.where(e_ok, v, jnp.zeros_like(v)),
-                mode="drop")[:extras_cap]
-
-        E2 = jax.tree.unflatten(tree_T, [pour_e(v) for v in chans_s[:nx]])
-        Eov2 = jax.tree.unflatten(tree_ov,
-                                  [pour_e(v) for v in chans_s[nx:nx + 3]])
-        carry_E2 = jax.tree.unflatten(
-            tree_c, [pour_e(v) for v in chans_s[nx + 3:]]) \
-            if carry is not None else None
-        epid2 = jnp.full(epad, n_pad, jnp.int32).at[e_dst].set(
-            jnp.where(e_ok, pid_s, n_pad), mode="drop")[:extras_cap]
-        new = new._replace(E=E2, Eov=Eov2, epid=epid2,
-                           n_extras=jnp.sum(e_ok, dtype=jnp.int32))
-        if carry is not None:
-            return new, n_unrebinned, carry2, carry_E2
-        return new, n_unrebinned
     if carry is not None:
+        carry2 = jax.tree.unflatten(tree_c, outs[nx + 3:])
         return new, n_unrebinned, carry2
     return new, n_unrebinned
 
 
 def lattice_unbuild(layout: LatticeLayout, X, old_v):
     """Back to stable-id arrays; untouched entries (inactive or dropped)
-    keep their previous values.
-
-    One stacked *column* gather instead of per-channel gathers: XLA:TPU
-    gathers contiguous [K, 1] columns ~2x faster than K separate row
-    gathers (measured 51 vs 111 ms for 11 x 524k at 500k cells)."""
+    keep their previous values (one stacked column gather)."""
     n_slots = layout.pid.shape[0]
     ok = layout.slot_of < n_slots
     pick = jnp.where(ok, layout.slot_of, 0)
@@ -422,11 +245,6 @@ def lattice_unbuild(layout: LatticeLayout, X, old_v):
     G = jnp.stack(leaves_T + leaves_ov)[:, pick]   # [K, n_pad]
     olds = jax.tree.leaves(X) + jax.tree.leaves(old_v)
     outs = [jnp.where(ok, G[k], old) for k, old in enumerate(olds)]
-    if layout.epid is not None:
-        # overflow extras scatter back through their own stable ids
-        epid = layout.epid
-        evals = jax.tree.leaves(layout.E) + jax.tree.leaves(layout.Eov)
-        outs = [a.at[epid].set(v, mode="drop") for a, v in zip(outs, evals)]
     nx = len(leaves_T)
     return (jax.tree.unflatten(tree_T, outs[:nx]),
             jax.tree.unflatten(tree_ov, outs[nx:]))
@@ -468,11 +286,10 @@ def _gap_deficit(P, Q, grid_size):
     axes ride the same term with the third axis pooled +-2,
     conservatively ignoring its gap); pairs >= 3 apart along any axis
     would need a gap closure > 2*cube - r_max, covered by the caller's
-    global displacement fallback term.  The round-3 certificate pooled
-    laterally +-2 into the single-axis check instead, which charged the
-    u-gap of cells 2 cubes apart in v -- cells that can only interact
-    by ALSO closing the v-gap -- and flagged tissue shear (lateral
-    slip) that misses no pairs at all.
+    global displacement fallback term.  Pooling laterally +-2 into the
+    single-axis check instead would charge the u-gap of cells 2 cubes
+    apart in v -- cells that can only interact by ALSO closing the v-gap
+    -- and flag tissue shear (lateral slip) that misses no pairs at all.
     """
     gx, gy, gz = _grid_dims(grid_size)
     shape3 = (gz, gy, gx)
@@ -536,12 +353,8 @@ def _gap_deficit(P, Q, grid_size):
 
 def slot_to_stable(layout, tree, fill=0.0):
     """Gather a slot-space pytree back to stable-id order (``fill`` for
-    ids with no slot: inactive or capacity-dropped).
-
-    Multi-leaf trees ride ONE stacked column gather: XLA:TPU gathers
-    contiguous [K, 1] columns ~2x faster than K separate row gathers
-    (same measurement as ``lattice_unbuild``; at 500k the per-pass dX
-    gather of the reference-exact rebuild cadence is 11 channels)."""
+    ids with no slot: inactive or capacity-dropped).  Multi-leaf trees
+    ride one stacked column gather."""
     n_slots = layout.pid.shape[0]
     ok = layout.slot_of < n_slots
     pick = jnp.where(ok, layout.slot_of, 0)
@@ -695,15 +508,13 @@ def pairwise_on_padded(pw_int, pw_friction, P, Pov, Pocc, Ppid, cube_size, *,
 
 
 @partial(jax.jit,
-         static_argnums=(0, 1, 2, 3, 4, 5, 6, 7, 14, 15, 16, 19, 20, 21,
-                         22, 23, 24))
+         static_argnums=(0, 1, 2, 3, 4, 5, 6, 7, 14, 15, 18, 19, 20))
 def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
                        grid_size, capacity, z_block,
                        X, old_v, n, dt, cube_size, fix_point,
-                       precompute=None, pallas=False, gen=None,
-                       gen_args=None, force_r_max=None,
-                       extras_cap=0, extras_block_cap=16, rebin_m_cap=0,
-                       rebin_per_pass=False, route_movers=0.0, x_split=1):
+                       precompute=None, gen=None, gen_args=None,
+                       force_r_max=None, rebin_m_cap=0,
+                       rebin_per_pass=False, x_split=1):
     """``n_steps`` Heun steps with lattice-resident state.
 
     Same integration semantics as ``solvers.heun_steps`` (COM/point fixes,
@@ -758,56 +569,21 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
                             and (rebin_m_cap == 0 or rebin_per_pass)), \
         ("x_split > 1 requires per-pass-exact binning: rebuild_every == 1 "
          "with rebin_m_cap == 0 (plain rebuilds) or rebin_per_pass")
-    if extras_cap:
-        assert pallas, "overflow extras require the Pallas kernel"
-        assert gen is None, \
-            "generic forces do not compose with overflow extras yet"
     occ_of = lambda lay: lay.pid < lay.slot_of.shape[0]
 
-    # mover routing (``route_movers`` > 0, a safety factor): cells whose
-    # chunk-extrapolated old_v displacement could eat half the binning
-    # margin are FORCED into the per-pass-exact extras list at build, so
-    # the resident cadence's staleness certificate measures only the
-    # slow bulk.  Purely a placement heuristic -- a mispredicted mover
-    # is still caught by the certificate, an over-routed chunk by the
-    # extras/block-cap flags.  (Rebin keeps its own slot residency; the
-    # rebuild=1 exact path re-bins per pass; neither needs routing.)
-    route_on = (route_movers > 0 and extras_cap and rebin_m_cap == 0
-                and rebuild_every > 1 and force_r_max is not None)
-
     def build_lay(Xc, ovc):
-        rmask = None
-        if route_on:
-            vmax = jnp.maximum(jnp.abs(ovc.x),
-                               jnp.maximum(jnp.abs(ovc.y), jnp.abs(ovc.z)))
-            margin = cube_size - force_r_max
-            rmask = (vmax * (dt * (rebuild_every * route_movers))
-                     > 0.5 * margin)
-        return lattice_build(Xc, ovc, n, cube_size, gs, C, extras_cap,
-                             pallas_pour=pallas, route_mask=rmask,
-                             x_split=x_split)
+        return lattice_build(Xc, ovc, n, cube_size, gs, C, x_split=x_split)
 
-    def deriv(lay, T, n, E=None):
-        """Derivative in slot space; when overflow extras are enabled the
-        extras' derivative (same physics, kernel sidecar + extras-extras
-        pass) is returned alongside."""
+    def deriv(lay, T, n):
+        """Derivative in slot space."""
         from ..solvers import augment, truncate_aug
         orig_type = type(T)
         # derived per-point fields computed in slot layout (cheap,
         # garbage in empty slots is masked by occupancy)
         lay = lay._replace(T=augment(T, n, precompute))
-        if E is not None:
-            lay = lay._replace(E=augment(E, n, precompute))
-        if pallas:
-            from .lattice_pallas import lattice_pairwise_pallas
-            pair_fn = partial(lattice_pairwise_pallas,
-                              extras_block_cap=extras_block_cap)
-        else:
-            pair_fn = lattice_pairwise_resident
-        outs = pair_fn(pw_int, pw_friction, lay, n, cube_size,
-                       grid_size=gs, capacity=C, z_block=z_block,
-                       x_split=x_split)
-        F, sum_f, sum_v, aux = outs[:4]
+        F, sum_f, sum_v, aux = lattice_pairwise_resident(
+            pw_int, pw_friction, lay, n, cube_size, grid_size=gs,
+            capacity=C, z_block=z_block, x_split=x_split)
         from .common import apply_derived_aux, apply_post_pair
         aux = apply_derived_aux(pw_int, aux, sum_f)
         F, aux = apply_post_pair(pw_int, F, aux, lay.T)
@@ -825,62 +601,32 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
                     g, mode="drop", unique_indices=True)
             F = F.replace(**upd)
 
-        def mix(F, sum_f, sum_v):
-            inv = jnp.where(sum_f > 0,
-                            1.0 / jnp.where(sum_f > 0, sum_f, 1.0), 0.0)
-            return F.replace(x=F.x + sum_v[0] * inv,
-                             y=F.y + sum_v[1] * inv,
-                             z=F.z + sum_v[2] * inv)
-
+        inv = jnp.where(sum_f > 0, 1.0 / jnp.where(sum_f > 0, sum_f, 1.0),
+                        0.0)
         occ = occ_of(lay)
-        dX = mask_tree(mix(F, sum_f, sum_v), occ)
-        elive = None
-        aux_e = None
-        dXe = None
-        if E is not None:
-            Fe, sum_fe, sum_ve, aux_e = outs[4]
-            aux_e = apply_derived_aux(pw_int, aux_e, sum_fe)
-            Fe, aux_e = apply_post_pair(pw_int, Fe, aux_e, lay.E)
-            Fe = truncate_aug(Fe, orig_type)
-            elive = lay.epid < lay.slot_of.shape[0]
-            dXe = mask_tree(mix(Fe, sum_fe, sum_ve), elive)
+        dX = mask_tree(F.replace(x=F.x + sum_v[0] * inv,
+                                 y=F.y + sum_v[1] * inv,
+                                 z=F.z + sum_v[2] * inv), occ)
+        n_occ = jnp.sum(occ)
 
-        n_occ = jnp.sum(occ) + (jnp.sum(elive) if E is not None else 0)
+        def com(a):
+            return jnp.sum(jnp.where(occ, a, 0.0)) / jnp.maximum(n_occ, 1)
 
-        def com(a, ae=None):
-            s = jnp.sum(jnp.where(occ, a, 0.0))
-            if ae is not None:
-                s = s + jnp.sum(jnp.where(elive, ae, 0.0))
-            return s / jnp.maximum(n_occ, 1)
+        def at_point(a):
+            # value at the pinned stable id's slot
+            return jnp.sum(jnp.where(lay.pid == fix_point, a, 0.0))
 
-        def at_point(a, ae=None):
-            # value at the pinned stable id's slot (or extras entry)
-            s = jnp.sum(jnp.where(lay.pid == fix_point, a, 0.0))
-            if ae is not None:
-                s = s + jnp.sum(jnp.where(lay.epid == fix_point, ae, 0.0))
-            return s
-
-        de = (lambda f: getattr(dXe, f)) if E is not None \
-            else (lambda f: None)
         if fix_mode == "com":
-            fx, fy, fz = (com(dX.x, de("x")), com(dX.y, de("y")),
-                          com(dX.z, de("z")))
+            fx, fy, fz = com(dX.x), com(dX.y), com(dX.z)
         elif fix_mode == "point":
-            fx, fy, fz = (at_point(dX.x, de("x")), at_point(dX.y, de("y")),
-                          at_point(dX.z, de("z")))
+            fx, fy, fz = at_point(dX.x), at_point(dX.y), at_point(dX.z)
         elif fix_mode == "com_z":
-            fx, fy, fz = (at_point(dX.x, de("x")), at_point(dX.y, de("y")),
-                          com(dX.z, de("z")))
+            fx, fy, fz = at_point(dX.x), at_point(dX.y), com(dX.z)
         else:
             raise ValueError(fix_mode)
         dX = dX.replace(x=jnp.where(occ, dX.x - fx, 0.0),
                         y=jnp.where(occ, dX.y - fy, 0.0),
                         z=jnp.where(occ, dX.z - fz, 0.0))
-        if E is not None:
-            dXe = dXe.replace(x=jnp.where(elive, dXe.x - fx, 0.0),
-                              y=jnp.where(elive, dXe.y - fy, 0.0),
-                              z=jnp.where(elive, dXe.z - fz, 0.0))
-            return dX, aux, dXe, aux_e
         return dX, aux
 
     to_stable = slot_to_stable
@@ -895,17 +641,6 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
 
         def dstable(Xc):
             lay = build_lay(Xc, old_v)
-            if extras_cap:
-                dXs, aux_s, dXe, aux_e = deriv(lay, lay.T, n, lay.E)
-                dX_st = jax.tree.map(
-                    lambda a, e: a.at[lay.epid].set(e, mode="drop"),
-                    to_stable(lay, dXs), dXe)
-                aux_st = to_stable(lay, aux_s)
-                aux_st = {
-                    k: aux_st[k].at[lay.epid].set(aux_e[k], mode="drop")
-                    for k in aux_st}
-                aux_st["__err_extras_block"] = aux_e["__err_extras_block"]
-                return dX_st, aux_st, lay.n_dropped, lay.n_oob
             dXs, aux_s = deriv(lay, lay.T, n)
             return (to_stable(lay, dXs), to_stable(lay, aux_s),
                     lay.n_dropped, lay.n_oob)
@@ -931,7 +666,6 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         freshly-binned layout; returns (updated layout, stable-order aux,
         non-finite flag contribution)."""
         occ = occ_of(lay)
-        elive = (lay.epid < lay.slot_of.shape[0]) if extras_cap else None
 
         def heun(a, b, c2):
             return jax.tree.map(
@@ -968,62 +702,16 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
             v = jnp.where(occ, arr, fill)
             return red(v.reshape(n_cubes, C), axis=1)
 
-        def state_deficit(T_at, E_at):
+        def state_deficit(T_at):
             P = jnp.full((3, n_cubes), -big)
             Q = jnp.full((3, n_cubes), big)
-            if E_at is not None:
-                # extras enter the extrema at their CURRENT per-state
-                # cube: the kernel re-tables extras-lattice pairs every
-                # pass from the extras' instantaneous positions
-                # (_extras_tables in lattice_pallas), so an extra's own
-                # motion can never miss a pair -- only its lattice
-                # partner's staleness matters, and that is what the
-                # current-cube scatter measures.  (Scattering at the
-                # chunk-start cube instead charged fast rattlers --
-                # which are exactly the crowded cells that spill into
-                # extras -- against the margin for no physical reason.)
-                eci = _cube_ids(E_at, jnp.int32(lay.epid.shape[0]),
-                                cube_size, gs)
-                eci = jnp.where(elive, eci, n_cubes)
             for u, f in enumerate(("x", "y", "z")):
                 d2 = getattr(T_at, f)
                 P = P.at[u].set(cube_red(d2, -big, jnp.max))
                 Q = Q.at[u].set(cube_red(d2, big, jnp.min))
-                if E_at is not None:
-                    de = getattr(E_at, f)
-                    P = P.at[u, eci].max(jnp.where(elive, de, -big),
-                                         mode="drop")
-                    Q = Q.at[u, eci].min(jnp.where(elive, de, big),
-                                         mode="drop")
             return _gap_deficit(P, Q, gs)
 
         def step(c, _):
-            if extras_cap:
-                T, Tov, E, Eov, dfc = c
-                lay_t = lay._replace(Tov=Tov, Eov=Eov)
-                d1, aux1, d1e, aux1e = deriv(lay_t, T, n, E)
-                T1 = jax.tree.map(lambda a, b: a + b * dt, T, d1)
-                E1 = jax.tree.map(lambda a, b: a + b * dt, E, d1e)
-                d2, aux, d2e, auxe = deriv(lay_t, T1, n, E1)
-                for k in aux:
-                    if k.startswith("__err_"):
-                        aux[k] = jnp.maximum(aux[k], aux1[k])
-                for k in auxe:
-                    if k.startswith("__err_"):
-                        auxe[k] = jnp.maximum(auxe[k], aux1e[k])
-                T_new, E_new = heun(T, d1, d2), heun(E, d1e, d2e)
-                # lattice slots only: extras' pairs are re-tabled from
-                # their current positions every pass, so extras' own
-                # displacement cannot open a missed-pair window (the
-                # >= 3-cube fallback only needs the LATTICE partner's
-                # stray from its build cube)
-                disp_t = jnp.maximum(max_disp(T_new, lay.T, occ),
-                                     max_disp(T1, lay.T, occ))
-                if track:
-                    dfc = jnp.maximum(dfc, state_deficit(T1, E1))
-                    dfc = jnp.maximum(dfc, state_deficit(T_new, E_new))
-                return ((T_new, mean_v(d1, d2), E_new, mean_v(d1e, d2e),
-                         dfc), (aux, auxe, disp_t))
             T, Tov, dfc = c
             lay_t = lay._replace(Tov=Tov)
             d1, aux1 = deriv(lay_t, T, n)
@@ -1034,28 +722,18 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
                     aux[k] = jnp.maximum(aux[k], aux1[k])
             T_new = heun(T, d1, d2)
             if track:
-                dfc = jnp.maximum(dfc, state_deficit(T1, None))
-                dfc = jnp.maximum(dfc, state_deficit(T_new, None))
+                dfc = jnp.maximum(dfc, state_deficit(T1))
+                dfc = jnp.maximum(dfc, state_deficit(T_new))
             disp_t = jnp.maximum(max_disp(T_new, lay.T, occ),
                                  max_disp(T1, lay.T, occ))
             return ((T_new, mean_v(d1, d2), dfc), (aux, disp_t))
 
-        if track:
-            # the chunk-start (binning) state is itself the first pass's
-            # evaluation state
-            dfc0 = state_deficit(lay.T, lay.E if extras_cap else None)
-        else:
-            dfc0 = jnp.float32(-big)
-        if extras_cap:
-            (T, Tov, E, Eov, dfc), (auxs, auxes, disps) = jax.lax.scan(
-                step, (lay.T, lay.Tov, lay.E, lay.Eov, dfc0), None,
-                length=rebuild_every)
-            lay = lay._replace(T=T, Tov=Tov, E=E, Eov=Eov)
-        else:
-            (T, Tov, dfc), (auxs, disps) = jax.lax.scan(
-                step, (lay.T, lay.Tov, dfc0), None,
-                length=rebuild_every)
-            lay = lay._replace(T=T, Tov=Tov)
+        # the chunk-start (binning) state is itself the first pass's
+        # evaluation state
+        dfc0 = state_deficit(lay.T) if track else jnp.float32(-big)
+        (T, Tov, dfc), (auxs, disps) = jax.lax.scan(
+            step, (lay.T, lay.Tov, dfc0), None, length=rebuild_every)
+        lay = lay._replace(T=T, Tov=Tov)
         # staleness certification: the largest in-chunk displacement bounds
         # how far the binning went stale between rebuilds (with
         # cube_size == cutoff the missed just-entering pairs carry force
@@ -1067,38 +745,23 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         aux_last = to_stable(lay, {
             k: (a.max(0) if k.startswith("__err_") else a[-1])
             for k, a in auxs.items()})
-        if extras_cap:
-            # extras' aux rows land at their own stable ids; the sidecar
-            # block-overflow flag stays scalar
-            for k in aux_last:
-                if k in auxes:
-                    v = auxes[k].max(0) if k.startswith("__err_") \
-                        else auxes[k][-1]
-                    aux_last[k] = aux_last[k].at[lay.epid].set(
-                        v, mode="drop")
-            aux_last["__err_extras_block"] = \
-                auxes["__err_extras_block"].max(0)
         aux_last["stale_max_disp"] = disp
         if track:
             # a missed pair needs an actual position gap < r_max across
             # >= 2 cubes at some single force evaluation; collective
-            # flow (which a p99-wide tissue sustains through the
-            # friction velocity mixing) cancels in the per-state
-            # per-cube position extrema where the absolute 2*max|dX|
-            # bound would flag every resident chunk.  The closure VALUE
-            # is published too, so a caller can size the binning margin
-            # (cube_size - r_max) from measurement instead of probing
-            # flag-by-flag; the flag condition is closure > margin.
-            # The displacement fallback covers pairs >= 3 cubes apart.
+            # flow cancels in the per-state per-cube position extrema
+            # where the absolute 2*max|dX| bound would flag every
+            # resident chunk.  The closure VALUE is published too, so a
+            # caller can size the binning margin (cube_size - r_max) from
+            # measurement instead of probing flag-by-flag; the flag
+            # condition is closure > margin.  The displacement fallback
+            # covers pairs >= 3 cubes apart.
             closure = dfc + cube_size
             flag = ((closure > (cube_size - force_r_max))
                     | ((2.0 * disp) > (2.0 * cube_size - force_r_max)))
             aux_last["__err_stale"] = flag.astype(jnp.float32)
             aux_last["stale_shear_closure"] = closure
-        bad = nonfinite(lay.T)
-        if extras_cap:
-            bad = bad | nonfinite(lay.E)
-        return lay, aux_last, bad
+        return lay, aux_last, nonfinite(lay.T)
 
     def chunk(carry, _):
         X, old_v, dropped, oob, bad = carry
@@ -1116,7 +779,7 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         # a no-op pass)
         lay, dropped, oob, bad, unre = carry
         lay, un = lattice_rebin(lay, cube_size, gs, C, rebin_m_cap,
-                                extras_cap, x_split=x_split)
+                                x_split=x_split)
         unre = jnp.maximum(unre, un)
         dropped = jnp.maximum(dropped, lay.n_dropped)
         oob = jnp.maximum(oob, lay.n_oob)
@@ -1132,21 +795,17 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         # runs in the *predictor state's* binning with the predictor
         # derivative transported through the rebin permutation
         # (X_new = X1 + dt/2 * (d2 - d1)).  No staleness certificate is
-        # needed -- every pass evaluates under a fresh binning -- so the
-        # binning margin (and with it the capacity C) stays at the
-        # cost-optimal cube size.  Aux accumulators ride the scan carry in
-        # slot order and are gathered to stable ids ONCE at the end
-        # (__err_* merge elementwise-max across passes; their contract is
-        # global-any, and slot orders differ across passes only by the
-        # movers).
+        # needed -- every pass evaluates under a fresh binning.  Aux
+        # accumulators ride the scan carry in slot order and are gathered
+        # to stable ids ONCE at the end (__err_* merge elementwise-max
+        # across passes; their contract is global-any, and slot orders
+        # differ across passes only by the movers).
         assert rebuild_every == 1, \
             "rebin_per_pass implies rebuild_every == 1"
-        lay0 = lattice_build(X, old_v, n, cube_size, gs, C, extras_cap,
-                             pallas_pour=pallas, x_split=x_split)
+        lay0 = build_lay(X, old_v)
 
-        def reb(lay, carry=None, carry_E=None):
-            return lattice_rebin(lay, cube_size, gs, C, rebin_m_cap,
-                                 extras_cap, carry, carry_E,
+        def reb(lay, carry=None):
+            return lattice_rebin(lay, cube_size, gs, C, rebin_m_cap, carry,
                                  x_split=x_split)
 
         def halfdiff(x1, a, b):
@@ -1162,77 +821,39 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
                                          jnp.max(aux1[k]))
             return out
 
-        if extras_cap:
-            aux_shape, auxe_shape = jax.eval_shape(
-                lambda lay: deriv(lay, lay.T, n, lay.E)[1::2], lay0)
-        else:
-            aux_shape = jax.eval_shape(
-                lambda lay: deriv(lay, lay.T, n)[1], lay0)
-            auxe_shape = {}
-        zeros_of = lambda sh: {k: jnp.zeros(v.shape, v.dtype)
-                               for k, v in sh.items()}
+        aux_shape = jax.eval_shape(lambda lay: deriv(lay, lay.T, n)[1], lay0)
 
         def step_pass(carry, _):
-            lay, aux_c, auxe_c, dropped, oob, bad, unre = carry
+            lay, aux_c, dropped, oob, bad, unre = carry
             lay, un1 = reb(lay)
             dropped = jnp.maximum(dropped, lay.n_dropped)
             oob = jnp.maximum(oob, lay.n_oob)
             unre = jnp.maximum(unre, un1)
-            if extras_cap:
-                d1, aux1, d1e, aux1e = deriv(lay, lay.T, n, lay.E)
-                lay = lay._replace(
-                    T=jax.tree.map(lambda a, b: a + b * dt, lay.T, d1),
-                    E=jax.tree.map(lambda a, b: a + b * dt, lay.E, d1e))
-                lay, un2, d1, d1e = reb(lay, d1, d1e)
-                unre = jnp.maximum(unre, un2)
-                dropped = jnp.maximum(dropped, lay.n_dropped)
-                oob = jnp.maximum(oob, lay.n_oob)
-                d2, aux, d2e, auxe = deriv(lay, lay.T, n, lay.E)
-                lay = lay._replace(
-                    T=jax.tree.map(halfdiff, lay.T, d1, d2),
-                    E=jax.tree.map(halfdiff, lay.E, d1e, d2e),
-                    Tov=Float3(x=(d1.x + d2.x) * 0.5,
-                               y=(d1.y + d2.y) * 0.5,
-                               z=(d1.z + d2.z) * 0.5),
-                    Eov=Float3(x=(d1e.x + d2e.x) * 0.5,
-                               y=(d1e.y + d2e.y) * 0.5,
-                               z=(d1e.z + d2e.z) * 0.5))
-                auxe_c = fold_aux(auxe_c, auxe, aux1e)
-            else:
-                d1, aux1 = deriv(lay, lay.T, n)
-                lay = lay._replace(
-                    T=jax.tree.map(lambda a, b: a + b * dt, lay.T, d1))
-                lay, un2, d1 = reb(lay, d1)
-                unre = jnp.maximum(unre, un2)
-                dropped = jnp.maximum(dropped, lay.n_dropped)
-                oob = jnp.maximum(oob, lay.n_oob)
-                d2, aux = deriv(lay, lay.T, n)
-                lay = lay._replace(
-                    T=jax.tree.map(halfdiff, lay.T, d1, d2),
-                    Tov=Float3(x=(d1.x + d2.x) * 0.5,
-                               y=(d1.y + d2.y) * 0.5,
-                               z=(d1.z + d2.z) * 0.5))
+            d1, aux1 = deriv(lay, lay.T, n)
+            lay = lay._replace(
+                T=jax.tree.map(lambda a, b: a + b * dt, lay.T, d1))
+            lay, un2, d1 = reb(lay, d1)
+            unre = jnp.maximum(unre, un2)
+            dropped = jnp.maximum(dropped, lay.n_dropped)
+            oob = jnp.maximum(oob, lay.n_oob)
+            d2, aux = deriv(lay, lay.T, n)
+            lay = lay._replace(
+                T=jax.tree.map(halfdiff, lay.T, d1, d2),
+                Tov=Float3(x=(d1.x + d2.x) * 0.5, y=(d1.y + d2.y) * 0.5,
+                           z=(d1.z + d2.z) * 0.5))
             # pass-1 flags fold in as their global max (orders differ by
             # the movers; per-cell attribution is best-effort for flags)
             aux_c = fold_aux(aux_c, aux, aux1)
             bad = bad | nonfinite(lay.T)
-            if extras_cap:
-                bad = bad | nonfinite(lay.E)
-            return (lay, aux_c, auxe_c, dropped, oob, bad, unre), None
+            return (lay, aux_c, dropped, oob, bad, unre), None
 
-        carry0 = (lay0, zeros_of(aux_shape), zeros_of(auxe_shape),
+        carry0 = (lay0, {k: jnp.zeros(v.shape, v.dtype)
+                         for k, v in aux_shape.items()},
                   lay0.n_dropped, lay0.n_oob, jnp.bool_(False), zero)
-        (lay, aux_c, auxe_c, dropped, oob, bad, unre), _ = jax.lax.scan(
+        (lay, aux_c, dropped, oob, bad, unre), _ = jax.lax.scan(
             step_pass, carry0, None, length=n_steps)
         X, old_v = lattice_unbuild(lay, X, old_v)
         aux = to_stable(lay, aux_c)
-        if extras_cap:
-            blk = auxe_c.pop("__err_extras_block")
-            for k in aux:
-                if k in auxe_c:
-                    aux[k] = aux[k].at[lay.epid].set(auxe_c[k],
-                                                     mode="drop")
-            aux["__err_extras_block"] = blk
         aux["__err_lattice_dropped"] = dropped
         aux["__err_out_of_grid"] = oob
         aux["__err_non_finite"] = bad
@@ -1240,8 +861,7 @@ def lattice_heun_steps(n_steps, rebuild_every, pw_int, pw_friction, fix_mode,
         return X, old_v, aux
 
     if rebin_m_cap and rebuild_every >= 1:
-        lay0 = lattice_build(X, old_v, n, cube_size, gs, C, extras_cap,
-                             pallas_pour=pallas, x_split=x_split)
+        lay0 = build_lay(X, old_v)
         carry0 = (lay0, lay0.n_dropped, lay0.n_oob, jnp.bool_(False),
                   zero)
         (lay, dropped, oob, bad, unre), auxs = jax.lax.scan(

@@ -1,11 +1,10 @@
 """All-pairs O(N^2) pairwise engine (XLA path).
 
-TPU-native rebuild of the reference's GPU-Gems-31 tiled N-body kernel
-``compute_tile`` (``/root/reference/include/solvers.cuh:282-339``): instead
+Rebuild of the reference's GPU-Gems-31 tiled N-body kernel
+``compute_tile`` (``include/solvers.cuh:282-339``): instead
 of staging 32 j-points in CUDA shared memory, we stream j-blocks through a
 ``lax.scan`` so that only an ``[n_pad, B]`` pair block is live at a time;
-XLA fuses the force evaluation into the block reduction, keeping the
-working set in VMEM-sized tiles.
+XLA fuses the force evaluation into the block reduction.
 
 All pairs are evaluated, including i == j -- models rely on the diagonal for
 reaction/self terms (e.g. Meinhardt kinetics, ``examples/turing.cu:38-46``).

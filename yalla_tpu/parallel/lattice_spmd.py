@@ -3,7 +3,7 @@
 The dense cube-lattice pass (``ops/lattice_xla.py``) is a 27-point shifted
 -slice stencil over ``[gs_z, gs_y, gs_x * C]`` channels -- its natural
 multi-chip decomposition is one z-slab per device with a one-plane halo
-exchange, exactly the ring pattern ICI is built for (SURVEY.md §2.3; the
+exchange, the pattern NVLink-joined cards serve well (SURVEY.md §2.3; the
 reference is strictly single-GPU, solvers.cuh has no multi-device path).
 
 Design:
@@ -34,54 +34,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..dtypes import Float3
 from ..ops.common import friction_w_neighbour, mask_tree
-from ..ops.lattice_xla import LatticeLayout, lattice_build, \
-    lattice_unbuild, pairwise_on_padded
+from ..ops.lattice_xla import lattice_build, lattice_unbuild, \
+    pairwise_on_padded
 
-
-def _plane_exchange(axis, D):
-    """One-plane z halo exchange for [gz, gs, W] slabs under shard_map:
-    (lo, hi) [1, gs, W] from the z-neighbours (zeros at the ring edges)."""
-    fwd = [(i, i + 1) for i in range(D - 1)]
-    bwd = [(i + 1, i) for i in range(D - 1)]
-
-    def xch(a3):
-        if D == 1:
-            z = jnp.zeros_like(a3[:1])
-            return z, z
-        return (jax.lax.ppermute(a3[-1:], axis, fwd),
-                jax.lax.ppermute(a3[:1], axis, bwd))
-
-    return xch
-
-
-def _pallas_local_pairwise(pw_int, pw_friction, Taug, Tov, pid, n,
-                           cube_size, *, gs, C, gz, z_block, n_pad,
-                           axis, D):
-    """The single-chip Pallas kernel on one z-slab: exchanged halo planes
-    ride the kernel's j-side z pads (``z_halo``), so multi-chip runs the
-    SAME Mosaic program as one chip instead of the XLA fallback
-    (round-2 gap: the sharded path ran at XLA speeds)."""
-    from ..ops.lattice_pallas import lattice_pairwise_pallas
-    W = gs * C
-    xch = _plane_exchange(axis, D)
-    leaves3 = [a.reshape(gz, gs, W) for a in jax.tree.leaves(Taug)]
-    ov3 = [v.reshape(gz, gs, W) for v in (Tov.x, Tov.y, Tov.z)]
-    occ3 = (pid < n_pad).reshape(gz, gs, W).astype(jnp.float32)
-    lo_l, hi_l = zip(*[xch(a) for a in leaves3])
-    lo_ov, hi_ov = zip(*[xch(a) for a in ov3])
-    lo_occ, hi_occ = xch(occ3)
-    shim = LatticeLayout(T=Taug, Tov=Tov, pid=pid, slot_of=pid,
-                         n_dropped=jnp.int32(0), n_oob=jnp.int32(0))
-    return lattice_pairwise_pallas(
-        pw_int, pw_friction, shim, n, cube_size, grid_size=gs,
-        capacity=C, z_block=z_block, grid_z=gz, n_pad=n_pad,
-        z_halo=(list(lo_l), list(hi_l), list(lo_ov), list(hi_ov),
-                lo_occ > 0.5, hi_occ > 0.5))
-
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 __all__ = ["make_z_mesh", "lattice_sharded_heun_steps",
            "ShardedLatticeEngine"]
@@ -136,7 +91,6 @@ class ShardedLatticeEngine:
     capacity: int = 8
     z_block: int = 2
     axis: str = "z"
-    pallas: bool = False
 
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
                  i_offset=0, i_size=None):
@@ -162,13 +116,6 @@ class ShardedLatticeEngine:
         zb = self.z_block
 
         def local(T_leaves, ov_leaves, pid, cube_size):
-            if self.pallas:
-                F, sum_f, sum_v, aux = _pallas_local_pairwise(
-                    pw_int, pw_friction, jax.tree.unflatten(T_tree,
-                                                            T_leaves),
-                    Float3(*ov_leaves), pid, n, cube_size, gs=gs, C=C,
-                    gz=gz, z_block=zb, n_pad=n_pad, axis=axis, D=D)
-                return (F, sum_f, list(sum_v), aux)
             occ = pid < n_pad
             Pp = jax.tree.unflatten(T_tree, [with_halo(a)
                                              for a in T_leaves])
@@ -183,7 +130,7 @@ class ShardedLatticeEngine:
 
         spec_slot, spec_rep = P(axis), P()
         nT = len(T_leaves)
-        inner = shard_map(
+        inner = jax.shard_map(
             local, mesh=mesh,
             in_specs=([spec_slot] * nT, [spec_slot] * 3, spec_slot,
                       spec_rep),
@@ -204,7 +151,7 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
                                pw_int, pw_friction, fix_mode,
                                grid_size, capacity, z_block,
                                X, old_v, n, dt, cube_size, fix_point,
-                               precompute=None, axis="z", pallas=False,
+                               precompute=None, axis="z",
                                gen=None, gen_args=None):
     """``n_steps`` Heun steps, lattice z-slabs sharded over ``mesh[axis]``.
 
@@ -216,12 +163,11 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
     ``gen`` (a static ``GenericForce`` with ``args=None``) + ``gen_args``
     run the generic-forces hook (links, walls; ref solvers.cuh:43-53)
     INSIDE the resident loop: per pass, the slot channels the hook reads
-    are ``all_gather``-ed to stable-id order over the ring (short ICI
-    hop; XLA dead-code-eliminates channels the hook never touches), the
+    are ``all_gather``-ed to stable-id order over the ring (short
+    NVLink hop; XLA dead-code-eliminates channels the hook never touches), the
     hook runs replicated, and each device scatter-adds the rows whose
     slot lives in its slab.  Protrusion/wall models therefore scale past
-    one chip without leaving the resident loop (round-2 gap: only the
-    rebuild-per-pass ``ShardedLatticeEngine`` composed with links).
+    one device without leaving the resident loop.
 
     Known deviation: ``rebuild_every == 1`` still bins once per *step*
     (both Heun passes share the predictor-state binning), where the
@@ -278,22 +224,15 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
 
         def deriv(T, Tov):
             Taug = augment(T, n, precompute)
-            if pallas:
-                D = mesh.shape[axis]
-                F, sum_f, sum_v, aux = _pallas_local_pairwise(
-                    pw_int, pw_friction, Taug, Tov, pid, n, cube_size,
-                    gs=gs, C=C, gz=gz, z_block=z_block, n_pad=n_pad,
-                    axis=axis, D=D)
-            else:
-                Pp = jax.tree.map(with_halo, Taug)
-                Pov = Float3(with_halo(Tov.x), with_halo(Tov.y),
-                             with_halo(Tov.z))
-                Pocc = with_halo(occ) > 0.5
-                Ppid = with_halo(pid.astype(jnp.float32),
-                                 float(n_pad)).astype(jnp.int32)
-                F, sum_f, sum_v, aux = pairwise_on_padded(
-                    pw_int, pw_friction, Pp, Pov, Pocc, Ppid, cube_size,
-                    grid_size=gs, capacity=C, z_block=z_block)
+            Pp = jax.tree.map(with_halo, Taug)
+            Pov = Float3(with_halo(Tov.x), with_halo(Tov.y),
+                         with_halo(Tov.z))
+            Pocc = with_halo(occ) > 0.5
+            Ppid = with_halo(pid.astype(jnp.float32),
+                             float(n_pad)).astype(jnp.int32)
+            F, sum_f, sum_v, aux = pairwise_on_padded(
+                pw_int, pw_friction, Pp, Pov, Pocc, Ppid, cube_size,
+                grid_size=gs, capacity=C, z_block=z_block)
             from ..ops.common import apply_derived_aux, apply_post_pair
             aux = apply_derived_aux(pw_int, aux, sum_f)
             F, aux = apply_post_pair(pw_int, F, aux, Taug)
@@ -374,7 +313,7 @@ def lattice_sharded_heun_steps(mesh, n_steps, rebuild_every,
         ov_leaves = list(lay.Tov)
 
         gen_specs = jax.tree.map(lambda _: spec_rep, gen_args)
-        inner = shard_map(
+        inner = jax.shard_map(
             local_chunk, mesh=mesh,
             in_specs=([spec_slot] * len(T_leaves), [spec_slot] * 3,
                       spec_slot, spec_rep, spec_rep, spec_rep, spec_rep,

@@ -2,13 +2,13 @@
 
 The reference is strictly single-GPU (no NCCL/MPI anywhere; SURVEY.md §2.3).
 The natural scale axis of this workload is the *cell count*, so the
-TPU-native multi-chip design shards every per-cell array over a 1-D
+multi-device design shards every per-cell array over a 1-D
 ``jax.sharding.Mesh`` axis (``cells``) and runs the Heun step under
 ``shard_map``:
 
 * each device owns ``n_pad / D`` cells and computes their derivatives
   against the full population, obtained with one ``all_gather`` per Heun
-  pass (rides ICI; at 500k cells the gathered state is ~10-20 MB);
+  pass (one NVLink collective; at 500k cells the gathered state is ~10-20 MB);
 * the momentum fix (COM drift subtraction, ref solvers.cuh:240-253) becomes
   a ``psum`` of per-shard partial sums;
 * the engine's ``(i_offset, i_size)`` window restricts the pairwise work to
@@ -28,11 +28,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..dtypes import Float3
 from ..ops.common import friction_w_neighbour
-
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 __all__ = ["make_cells_mesh", "make_sharded_step", "shard_state"]
 
@@ -176,7 +171,7 @@ def make_sharded_step(mesh, engine, pw_int, *,
             out_specs = (jax.tree.map(lambda _: spec_cells, X),
                          jax.tree.map(lambda _: spec_cells, old_v),
                          spec_rep)
-            _cache[key] = jax.jit(shard_map(
+            _cache[key] = jax.jit(jax.shard_map(
                 body, mesh=mesh, in_specs=in_specs,
                 out_specs=out_specs, check_vma=False))
         return _cache[key](X, old_v, n, dt, cube_size, fix_point, gen_args)

@@ -1,6 +1,6 @@
 """Polarity: forces for polarization, epithelial sheets, and migration.
 
-TPU-native rebuild of ``/root/reference/include/polarity.cuh``.  Polarity is
+Rebuild of ``include/polarity.cuh``.  Polarity is
 a unit vector p in spherical coordinates, 0 <= theta < pi, -pi <= phi <= pi,
 stored as two extra Pt fields.  All forces are analytic gradients of pair
 potentials and are written as elementwise jnp functions, so they compose
@@ -156,7 +156,7 @@ def apical_constriction_force(Xi, r, dist, pref_angle, axis=DEFAULT_AXIS):
 # vector p_i = (sin t cos f, sin t sin f, cos t) and r-hat.  Precomputing p_i
 # once per cell (``polarity_precompute``) turns the per-pair evaluation into
 # pure arithmetic -- identical math, ~20x fewer transcendentals in the hot
-# loop (bending dominated the flagship model's step time on TPU).
+# loop.
 # ---------------------------------------------------------------------------
 
 def polarity_precompute(X, n, axis=DEFAULT_AXIS, prefix="p"):
@@ -169,8 +169,8 @@ def polarity_precompute(X, n, axis=DEFAULT_AXIS, prefix="p"):
 
     Use as the ``precompute`` hook of the solvers; the fields flow through
     Xi / Xj / r in any engine.  Only the unit vector is ever read on the
-    j side, so engines with i-only channel analysis (the Pallas lattice
-    kernel) carry the other four for free.
+    j side, so engines with i-only channel analysis carry the other four
+    for free.
     """
     th, ph = _angles(X, axis)
     cf, sf = jnp.cos(ph), jnp.sin(ph)
@@ -235,7 +235,7 @@ def bending_force_fast(Xi, r, dist, axis=DEFAULT_AXIS, p="p", inv=None):
     """``bending_force`` on precomputed polarity trig (see
     ``polarity_precompute``); identical physics, no per-pair trig, and --
     given ``inv`` = 1/dist -- no per-pair division either (the hot-loop
-    form for the TPU kernels: everything below is mul/add).
+    form for the pair kernels: everything below is mul/add).
 
     Xi must carry the {p}x/{p}y/{p}z (and ideally {p}cf/{p}sf/{p}st/{p}sg)
     fields; Xj's vector arrives as ``Xi.p - r.p`` because engines form r
@@ -286,7 +286,7 @@ def bending_force_cart(Xi, r, dist, p="p", inv=None):
 
     vs ``bending_force_fast`` this drops the four per-point trig channels
     (pcf/psf/pst/psg -- use the compact ``polarity_precompute3``) and ~4
-    VPU ops per candidate lane; the per-cell conversion does the trig
+    ops per candidate pair; the per-cell conversion does the trig
     once per point instead of carrying it through the pair pass.
     """
     pxi, pyi, pzi = (getattr(Xi, p + f) for f in ("x", "y", "z"))

@@ -1,5 +1,5 @@
 """Per-cell state that is not numerically integrated (cell type, counters,
-lineage ids, ...).  Rebuild of ``/root/reference/include/property.cuh``.
+lineage ids, ...).  Rebuild of ``include/property.cuh``.
 
 A ``Property`` is a named, fixed-capacity array with a mutable host mirror
 and a device array, named for VTK export.  Integer by default, like the

@@ -1,6 +1,6 @@
 """Heun integrator + neighbour engines + the ``Solution`` facade.
 
-TPU-native rebuild of ``/root/reference/include/solvers.cuh``:
+Rebuild of the reference's ``include/solvers.cuh``:
 
 * ``Heun_solver`` (ref solvers.cuh:164-276) becomes a *pure function*
   ``(X, old_v, n) -> (X', old_v', aux)`` traced once under ``jax.jit``;
@@ -41,7 +41,7 @@ from .ops.pairwise_xla import tile_pairwise
 
 __all__ = [
     "TileEngine", "GridEngine", "GabrielEngine",
-    "LatticeEngine",
+    "LatticeEngine", "SweepEngine",
     "GenericForce", "Solution", "SimulationError", "heun_step", "heun_steps",
     "friction_w_neighbour", "friction_on_background",
 ]
@@ -59,45 +59,12 @@ class SimulationError(RuntimeError):
 
 @dataclass(frozen=True)
 class TileEngine:
-    """All-pairs O(N^2) (ref Tile_computer, solvers.cuh:324-342).
-
-    ``pallas`` runs the fused 8x128-pair-tile TPU kernel
-    (ops/tile_pallas.py) -- the small-N latency path where compact
-    tissues drive the lattice capacity through the roof; needs
-    ``n_pad % 128 == 0`` and no sharded window.  ``None`` (default)
-    auto-selects it on the TPU backend whenever those conditions hold,
-    so the reference's small models (springs, oscillators, epithelium)
-    get the fused kernel without per-model configuration."""
+    """All-pairs O(N^2) (ref Tile_computer, solvers.cuh:324-342)."""
     j_block: int | None = None
-    pallas: bool | None = None
-    mxu: bool | None = None
 
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
                  i_offset=0, i_size=None):
         del cube_size  # no cutoff in the all-pairs engine
-        use_pallas = self.pallas if self.pallas is not None \
-            else jax.default_backend() == "tpu"
-        # ``mxu`` routes central_force-declared forces (with a friction
-        # carrying ``central_coef``) to the matmul-factored kernel
-        # (ops/central_mxu.py): pair distances, bilinear channels, and
-        # the force/friction reductions ride the MXU, only the radial
-        # coefficient costs VPU time.  None auto-selects alongside
-        # ``pallas``; agreement with the generic path is statistical
-        # (f32 matmul rounding) -- tests/test_central.py quantifies it.
-        use_mxu = self.mxu if self.mxu is not None else use_pallas
-        # i_offset is traced in the sharded path -- the fused whole-
-        # population kernels only apply to the static untiled case
-        whole = (i_size is None and isinstance(i_offset, int)
-                 and i_offset == 0)
-        if use_mxu and whole and X.x.shape[0] % 128 == 0 \
-                and getattr(pw_int, "fields", None) is not None \
-                and hasattr(pw_int, "coef") \
-                and hasattr(pw_friction, "central_coef"):
-            from .ops.central_mxu import central_pairwise_mxu
-            return central_pairwise_mxu(pw_int, pw_friction, X, old_v, n)
-        if use_pallas and whole and X.x.shape[0] % 128 == 0:
-            from .ops.tile_pallas import tile_pairwise_pallas
-            return tile_pairwise_pallas(pw_int, pw_friction, X, old_v, n)
         return tile_pairwise(pw_int, pw_friction, X, old_v, n,
                              j_block=self.j_block,
                              i_offset=i_offset, i_size=i_size)
@@ -120,44 +87,47 @@ class GridEngine:
 
 
 @dataclass(frozen=True)
+class SweepEngine:
+    """Cube-sorted neighbour sweep as a GPU kernel (ops/sweep_triton.py):
+    the reference's grid solver (solvers.cuh:345-502) with no per-cube or
+    per-row capacity, the large-N path on the card.  ``grid_size`` only
+    has to cover the tissue (``__err_out_of_grid`` flags cells outside
+    it); it costs one int32 per cube.  ``interpret=True`` runs the
+    kernel in the Pallas interpreter, for tests on the CPU."""
+    grid_size: int | tuple = 64
+    interpret: bool = False
+
+    def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
+                 i_offset=0, i_size=None):
+        from .ops.sweep_triton import sweep_pairwise
+        assert i_offset == 0 and i_size is None
+        return sweep_pairwise(pw_int, pw_friction, X, old_v, n, cube_size,
+                              grid_size=self.grid_size,
+                              interpret=self.interpret)
+
+
+@dataclass(frozen=True)
 class LatticeEngine:
-    """Dense cube-lattice engine (see ops/lattice_xla.py): the highest-
-    throughput path for large N.  ``Solution.take_step(s)`` routes to the
-    lattice-resident integrator; ``rebuild_every`` controls the binning
-    refresh cadence (1 = reference-exact per-pass rebuild).  ``pallas``
-    selects the fused TPU kernel for the pair pass.  ``force_r_max``
+    """Dense cube-lattice engine (see ops/lattice_xla.py), plain XLA.
+    ``Solution.take_step(s)`` routes to the lattice-resident integrator;
+    ``rebuild_every`` controls the binning refresh cadence (1 =
+    reference-exact per-pass rebuild).  ``capacity`` bounds the cells per
+    cube: overflow raises ``__err_lattice_dropped``.  ``force_r_max``
     (the force's interaction radius) opts in to staleness certification
     when ``rebuild_every > 1``: a chunk whose measured displacement could
     hide a just-entering pair within the binning margin
     (``cube_size - force_r_max``) raises ``__err_stale``."""
-    grid_size: int | tuple = 64   # int (cubic) or (gx, gy, gz): only x
-    #                               pays the 128-lane row rule (gx*capacity
-    #                               % 128); y/z are free at multiples of 8
+    grid_size: int | tuple = 64   # int (cubic) or (gx, gy, gz)
     capacity: int = 8
     z_block: int = 4
     rebuild_every: int = 1
-    pallas: bool = False
     force_r_max: float | None = None
-    # overflow extras: cells past a cube's ``capacity`` spill into a small
-    # exactly-handled side list (Pallas path only), so ``capacity`` can
-    # track the TYPICAL occupancy instead of the worst cube's (kernel cost
-    # scales ~capacity^2).  0 = off.
-    extras_cap: int = 0
-    extras_block_cap: int = 16
-    # route_movers > 0 (a safety factor, e.g. 2.0): with extras and a
-    # resident cadence, cells whose old_v-extrapolated chunk displacement
-    # could eat half the binning margin are FORCED into the per-pass-exact
-    # extras list at build time, so the staleness certificate only has to
-    # bound the slow bulk.  Placement heuristic only -- mispredictions are
-    # still caught by ``__err_stale`` / the extras flags.
-    route_movers: float = 0.0
     # x_split > 1 bins x at ``cube_size / x_split`` (thin x-cubes): the
     # per-cube capacity drops toward 1/x_split of the isotropic one while
-    # the kernel sweeps +-x_split x-neighbours -- total flat shifts go
-    # 4C - 1 -> 2(x_split + 1)C' - 1, ~1.35x fewer hot-loop iterations at
-    # C' = C/2 (the kernel-cost lever; BASELINE.md round-4).  Requires
-    # rebuild_every == 1 (per-pass rebuild/rebin: the staleness
-    # certificate is isotropic).  ``grid_size`` x then counts THIN cubes.
+    # the pair pass sweeps +-x_split x-neighbours -- total flat shifts go
+    # 4C - 1 -> 2(x_split + 1)C' - 1.  Requires rebuild_every == 1
+    # (per-pass rebuild/rebin: the staleness certificate is isotropic).
+    # ``grid_size`` x then counts THIN cubes.
     x_split: int = 1
 
     def __post_init__(self):
@@ -173,40 +143,18 @@ class LatticeEngine:
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
                  i_offset=0, i_size=None):
         from .ops.lattice_xla import (lattice_build,
-                                      lattice_pairwise_resident)
-        from .ops.lattice_pallas import lattice_pairwise_pallas
+                                      lattice_pairwise_resident,
+                                      slot_to_stable)
         assert i_offset == 0 and i_size is None
-        extras = self.extras_cap if self.pallas else 0
-        # pallas_pour: the butterfly pour kernel builds the slot arrays
-        # ~3x faster than the XLA scatter path at 500k (ops/lattice_pour);
-        # this engine rebuilds per PASS, so the pour is on the hot path
         lay = lattice_build(X, old_v, n, cube_size, self.grid_size,
-                            self.capacity, extras, pallas_pour=self.pallas,
-                            x_split=self.x_split)
-        if self.pallas:
-            from functools import partial as _partial
-            fn = _partial(lattice_pairwise_pallas,
-                          extras_block_cap=self.extras_block_cap)
-        else:
-            fn = lattice_pairwise_resident
-        outs = fn(pw_int, pw_friction, lay, n, cube_size,
-                  grid_size=self.grid_size, capacity=self.capacity,
-                  z_block=self.z_block, x_split=self.x_split)
-        F, sum_f, sum_v, aux = outs[:4]
-        from .ops.lattice_xla import slot_to_stable
+                            self.capacity, x_split=self.x_split)
+        F, sum_f, sum_v, aux = lattice_pairwise_resident(
+            pw_int, pw_friction, lay, n, cube_size,
+            grid_size=self.grid_size, capacity=self.capacity,
+            z_block=self.z_block, x_split=self.x_split)
         back = lambda t: slot_to_stable(lay, t)
         F, sum_f, sum_v, aux = (back(F), back(sum_f),
                                 tuple(back(list(sum_v))), back(aux))
-        if extras:
-            Fe, sum_fe, sum_ve, aux_e = outs[4]
-            epid = lay.epid
-            merge = lambda a, e: a.at[epid].set(e, mode="drop")
-            F = jax.tree.map(merge, F, Fe)
-            sum_f = merge(sum_f, sum_fe)
-            sum_v = tuple(merge(a, e) for a, e in zip(sum_v, sum_ve))
-            blk = aux_e.pop("__err_extras_block")
-            aux = {k: merge(aux[k], aux_e[k]) for k in aux}
-            aux["__err_extras_block"] = blk
         # per-pass D_ASSERT flags (dropped cells silently lose all their
         # pairs; out-of-grid cells are mis-binned, ref solvers.cuh:361-364)
         aux["__err_lattice_dropped"] = lay.n_dropped.astype(jnp.float32)
@@ -227,7 +175,7 @@ class GabrielEngine:
     max_candidates: int = 100
     # windowed=True runs the sorted-order shared-window formulation
     # (ops/grid_xla.gabriel_windowed): contiguous dynamic-slice windows
-    # instead of per-point row gathers -- the TPU path.  window_cap bounds
+    # instead of per-point row gathers.  window_cap bounds
     # a block's shared row span; points that don't fit the median-anchored
     # window are salvaged exactly by a gather pass of up to salvage_cap
     # points (overflow flagged in-loop).
@@ -239,46 +187,8 @@ class GabrielEngine:
     # (64, 16) is the fastest flag-clean pair at the reference's 100k
     # growth_w_wall density (benchmarks/diag_gabriel.py sweep).
     subgroup: int | None = 16
-    # lattice runs the dense-lattice Pallas kernel
-    # (ops/gabriel_pallas.py): in-VMEM candidate compaction instead of
-    # the windowed path's HBM gathers -- the 100k-scale perf path
-    # (~95 ms/step vs the windowed path's ~898 at the reference's 100k
-    # growth_w_wall config, BASELINE.md).  ``None`` (default)
-    # auto-selects it on the TPU backend whenever the kernel's shape
-    # rules hold (grid_size * capacity lane-aligned, unsharded), the
-    # same way TileEngine auto-selects its fused kernel; the in-loop
-    # ``__err_lattice_dropped`` flag still certifies the capacity.
-    # capacity is the lattice's per-cube slot count (max occupancy + 1);
-    # max_candidates should then bound the measured within-cutoff count
-    # (~16 at growth_w_wall density), not the reference's 100.
-    lattice: bool | None = None
-    capacity: int = 8
-    z_block: int = 2
-    y_block: int = 8
-
-    def _lattice_fits(self):
-        """Kernel shape rules (ops/gabriel_pallas.py): x-row of slots is
-        lane-aligned, y extent blocks into 8s, z extent into z_block."""
-        from .ops.common import grid_dims
-        gx, gy, gz = grid_dims(self.grid_size)
-        return ((gx * self.capacity) % 128 == 0 and gy % 8 == 0
-                and gz % self.z_block == 0)
-
     def pairwise(self, pw_int, pw_friction, X, old_v, n, cube_size,
                  i_offset=0, i_size=None):
-        whole = (i_size is None and isinstance(i_offset, int)
-                 and i_offset == 0)
-        use_lattice = self.lattice if self.lattice is not None else (
-            jax.default_backend() == "tpu" and whole
-            and self._lattice_fits())
-        if use_lattice and whole:
-            from .ops.gabriel_pallas import gabriel_lattice_pallas
-            return gabriel_lattice_pallas(
-                pw_int, pw_friction, X, old_v, n, cube_size,
-                grid_size=self.grid_size, capacity=self.capacity,
-                max_candidates=self.max_candidates,
-                gabriel_coefficient=self.gabriel_coefficient,
-                z_block=self.z_block, y_block=self.y_block)
         if self.windowed and i_offset == 0 and i_size is None:
             from .ops.grid_xla import gabriel_windowed
             return gabriel_windowed(
@@ -449,8 +359,9 @@ def heun_steps(n_steps, engine, pw_int, pw_friction, gen, fix_mode,
 # --------------------------------------------------------------------------
 
 def _pad_size(n_max):
-    # 128-lane multiples so the fused all-pairs Pallas tile kernel (and
-    # every lane-aligned fetch) engages without per-model padding config
+    # padded sizes snap to few values -- multiples of 128 up to 4096, then
+    # of 4096 (the capacity tiers of growing models, models/branching.py)
+    # -- so compiled programs are reused across nearby sizes
     if n_max <= 4096:
         return max(128, -(-n_max // 128) * 128)
     return -(-n_max // 4096) * 4096
@@ -482,15 +393,14 @@ class Solution:
         if engine is None:
             if solver == "auto":
                 # resolved lazily from the initial state (tile below the
-                # all-pairs crossover, Pallas lattice above; cf. the
+                # all-pairs crossover, a binned engine above; cf. the
                 # reference's ~7k-point grid crossover, solvers.cuh:346-347)
                 engine = None
             elif solver == "tile":
                 engine = TileEngine()
             elif solver == "grid":
-                # the reference's workhorse name; above the scale where the
-                # gather-bound direct translation is pathological on TPU,
-                # resolve to the lattice engine (identical cutoff
+                # the reference's workhorse name; above 20k points resolve
+                # to the large-N engine of the backend (identical cutoff
                 # semantics, cross-engine tests pin the physics)
                 if self.n_max <= 20_000:
                     engine = GridEngine(grid_size=grid_size, row_cap=row_cap)
@@ -563,11 +473,14 @@ class Solution:
     def _auto_engine(self):
         """Pick an engine from capacity and the current state extent:
         all-pairs below the crossover (cf. ref solvers.cuh:346-347, "maybe
-        7k points"; the Pallas lattice moves it lower on TPU), dense
-        Pallas lattice above, (grid, capacity) jointly sized to the
-        populated bounding box + measured occupancy (cost model in
-        ``ops.lattice_xla.pick_lattice_dims``; growth/drift overflow
-        raises via the in-loop flags)."""
+        7k points"), a binned engine above, sized to the populated
+        bounding box plus a growth margin.  The binned engine is the
+        backend's (``yalla_tpu.backend``): the sweep kernel on the GPU,
+        else the dense lattice with capacity from the measured cube
+        occupancy.  Growth/drift past either raises via the in-loop
+        flags."""
+        from . import backend
+        from .ops.common import grid_for
         from .ops.lattice_xla import pick_lattice_dims
         if self.n_max <= 2048:
             return TileEngine()
@@ -575,12 +488,6 @@ class Solution:
         h = [np.asarray(a[:max(n, 1)]) for a in
              (self.d_X.x, self.d_X.y, self.d_X.z)]
         extent = max(float(np.max(np.abs(a))) for a in h) if n else 1.0
-        cid = 0
-        for a in h:
-            cid = cid * (2 ** 21) + np.floor(
-                a / self.cube_size).astype(np.int64)
-        max_occ = int(np.unique(cid, return_counts=True)[1].max()) \
-            if n else 1
         margin = max(2.0 * self.cube_size, 0.3 * extent)
         extent = extent + margin
         if self._requested_grid_size is not None:
@@ -588,17 +495,22 @@ class Solution:
             # for (grid_size cubes across), not just today's bounding box
             extent = max(extent,
                          self._requested_grid_size * self.cube_size / 2)
-            import warnings
             warnings.warn(
                 f"Solution(solver='grid', n_max={self.n_max}) uses the "
-                f"dense lattice engine above 20k points (same cutoff "
-                f"physics; sized to cover the requested "
+                f"large-N engine above 20k points (same cutoff physics; "
+                f"sized to cover the requested "
                 f"{self._requested_grid_size}-cube grid). Pass an explicit "
                 f"engine= to override.", stacklevel=3)
+        if backend.on_gpu():
+            return SweepEngine(grid_size=grid_for(extent, self.cube_size))
+        cid = 0
+        for a in h:
+            cid = cid * (2 ** 21) + np.floor(
+                a / self.cube_size).astype(np.int64)
+        max_occ = int(np.unique(cid, return_counts=True)[1].max()) \
+            if n else 1
         gs, cap = pick_lattice_dims(extent, self.cube_size, max_occ + 1)
-        pallas = jax.default_backend() == "tpu"
-        return LatticeEngine(grid_size=gs, capacity=cap, z_block=2,
-                             pallas=pallas)
+        return LatticeEngine(grid_size=gs, capacity=cap, z_block=2)
 
     def take_step(self, dt, pw_int, *, pw_friction=friction_w_neighbour,
                   gen_forces=None, precompute=None, check_errors=True):
@@ -635,7 +547,7 @@ class Solution:
             raise SimulationError(
                 "in-loop failure detected: " + ", ".join(problems)
                 + " -- raise engine capacity (grid row_cap / lattice "
-                "capacity / extras_cap) or check the forces for NaN")
+                "capacity / grid_size) or check the forces for NaN")
 
     def take_steps(self, n_steps, dt, pw_int, *,
                    pw_friction=friction_w_neighbour, gen_forces=None,
@@ -674,9 +586,8 @@ class Solution:
                 e.grid_size, e.capacity, e.z_block,
                 self.d_X, self.d_old_v, self.d_n, jnp.float32(dt),
                 jnp.float32(self.cube_size), jnp.int32(self._fix_point),
-                precompute, e.pallas, gen_static, gen_args, rmax,
-                e.extras_cap, e.extras_block_cap, 0, False,
-                e.route_movers, e.x_split)
+                precompute, gen_static, gen_args, rmax, 0, False,
+                e.x_split)
             if check_errors:
                 self._check_errors()
             return self.aux

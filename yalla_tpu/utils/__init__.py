@@ -1,7 +1,7 @@
 """Observability + checkpointing utilities.
 
 The reference's only instrumentation is the wall-clock report in
-``Vtk_output``'s destructor (``/root/reference/include/vtk.cuh:75-91``) and
+``Vtk_output``'s destructor (``include/vtk.cuh:75-91``) and
 VTK files doubling as checkpoints.  The rebuild keeps both (see
 ``vtkio.py``) and adds strict upgrades: a step-rate tracker, an optional
 ``jax.profiler`` trace context, native array checkpoints, and runtime
